@@ -4,11 +4,15 @@
 
 Phases (each prints a line; any failure exits non-zero):
   1. device   the card's name and power limit; the host crypto backend
-  2. build    nvcc builds otti_tpu_torch/csrc/*.cu for sm_90a
+  2. build    nvcc builds otti_tpu_torch/csrc/*.cu for sm_90a (one compiler
+              per source, side by side); registers, spills and machine
+              instructions by opcode of each
   3. kernel1  field multiply kernel == its plain torch version, 2^20 random
-              semi-form pairs + edge values, both fields, broadcast operand
+              semi-form pairs + edge values, both fields, shared operand,
+              and the ragged sizes n in {1, 127, 129, 4097}
   4. kernel2  sumcheck round kernel == its plain version, full cubic and
-              quadratic sumchecks at 2^15 and at n in {2, 4, 8}
+              quadratic sumchecks at n in {2, 4, 8, 16, 32, 64, 256, 2^13,
+              2^15}; the same bits on three runs of one input
   5. main     otti_tpu_torch.cli.run_sgd on optdigits 3v8 and iris 0v1 (real
               data in datasets/pmlb_cache), cold then warm, both kernels
               launched, a tampered public input rejected
@@ -16,8 +20,10 @@ Phases (each prints a line; any failure exits non-zero):
               CPU gives byte-equal proofs
   7. scale    a 2^15-constraint R1CS (128 x 256 Hyrax grid) proved, cold and
               warm, with the prover's stage times
-  8. profile  torch.profiler over a warm optdigits prove: the device's busy
-              share of the wall time and the top kernels by device time
+  8. profile  a warm optdigits prove: the multiply kernel's launch sizes by
+              field and its time at the most frequent ones, both kernels'
+              launches per prove; then torch.profiler over another: the
+              device's busy share of the wall time and the top kernels
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -27,11 +33,14 @@ no result.  ``--phases`` runs a comma-separated subset (development).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import io
 import json
 import os
 import random
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -48,17 +57,65 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps calls, after one warm-up call."""
+def cuda_ms(fn, reps: int, queue_ahead: bool = False) -> float:
+    """Mean device time of fn() over reps calls, after one warm-up call.
+
+    With queue_ahead the card is first kept busy by a spin kernel for longer
+    than the host needs to enqueue the calls, so that the events bracket the
+    kernels back to back and not the Python wrapper's time between launches
+    (a wrapper call costs tens of microseconds on the host, more than a
+    short kernel runs)."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queue_ahead:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_s = time.perf_counter() - t0  # enqueue time (the queue never fills at these counts)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2.0e9 * (1.5 * host_s + 200e-6)))  # cycles at under 2 GHz
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet).  Integer work
+# outside the tensor cores has no line there: the float32 rate of 67 TFLOP/s
+# is 2 x 128 lanes x 132 SMs x 1.98 GHz, and 32-bit integer multiply-adds
+# run on half of those lanes, which gives 16.75e12 multiply-adds a second.
+HBM_BYTES_PER_S = 3.35e12
+INT32_MADS_PER_S = 67e12 / 4
+ROW_BYTES = 22 * 4
+# 32x32->64 multiplies of one field multiply in csrc/field.cuh (8 x 8 words,
+# then SCALAR: 4 x 9 + 4 x 5 + 4 x 1, BASE: 8 by the constant 38); each is
+# two 32-bit multiply-adds (low and high half).
+WIDE_MULS = {"scalar": 64 + 36 + 20 + 4, "base": 64 + 8}
+
+
+def bound(n_bytes: float, n_muls: float, kind: str = "scalar") -> tuple:
+    """(least ms the card could take, which of the two sets it): every input
+    byte read once and every output byte written once at the memory rate,
+    against the multiply-adds of n_muls field multiplies at the integer rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_muls * 2 * WIDE_MULS[kind] / INT32_MADS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mul_bound(kind: str, n: int, shared: bool = False) -> tuple:
+    return bound((2 * n + (1 if shared else n)) * ROW_BYTES, n, kind)
+
+
+def round_bound(degree: int, n: int) -> tuple:
+    """A bind + evaluate round on tables of n rows whose previous active half
+    is n / 2: every row read, n / 2 rows of each table written; n / 2
+    multiplies a table in the bind, and 2 (cubic) or 1 (quadratic) a point
+    over n / 4 pairs and 3 or 2 points."""
+    ntab, k, per = (4, 3, 2) if degree == 3 else (2, 2, 1)
+    return bound(ntab * (n + n // 2) * ROW_BYTES, ntab * (n // 2) + (n // 4) * k * per)
 
 
 def phase_device(rec: dict) -> None:
@@ -82,6 +139,20 @@ def phase_build(rec: dict) -> None:
     _build.library()
     log(f"[build] nvcc sm_90a build+load {time.time() - t0:.2f}s "
         f"(nvcc alone {_build.BUILD_SECONDS}s)")
+    for name, text in _build.PTXAS_LOGS.items():
+        for line in _build.ptxas_summary(text):
+            log(f"[build] {name} {line}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        log("[build] cuobjdump not found: no SASS counts")
+        return
+    opcode = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+    for name, path in _build.LIB_PATHS.items():  # machine instructions by opcode
+        sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True, text=True,
+                              timeout=120).stdout
+        ops = collections.Counter(m.group(1) for m in opcode.finditer(sass))
+        log(f"[build] {name} SASS: {sum(ops.values())} instructions; "
+            + ", ".join(f"{c} {op}" for op, c in ops.most_common(8)))
 
 
 def _semi(limbs: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
@@ -135,14 +206,30 @@ def phase_kernel1(rec: dict) -> None:
         if not torch.equal(got_b, want_b):
             raise AssertionError(f"kernel1 {spec.kind}: broadcast mismatch")
         worst = max(worst, int((got - want).abs().max()), int((got_b - want_b).abs().max()))
+        for m_rows in (1, 127, 129, 4097):  # ragged tiles, and a slice that is not 16-byte aligned
+            for off in (0, 1):
+                ar, br = a[off : off + m_rows], b[off : off + m_rows]
+                for rhs in (br, s):
+                    g, w = K.mul_cuda(spec, ar, rhs), K.mul_plain(spec, ar, rhs)
+                    if not torch.equal(g, w):
+                        raise AssertionError(
+                            f"kernel1 {spec.kind}: mismatch at n={m_rows} offset {off} "
+                            f"{'shared' if rhs is s else 'full'} operand")
         aa, bb = a[:n].contiguous(), b[:n].contiguous()
-        t_k = cuda_ms(lambda: K.mul_cuda(spec, aa, bb), 20)
+        t_k = cuda_ms(lambda: K.mul_cuda(spec, aa, bb), 20, queue_ahead=True)
+        t_w = cuda_ms(lambda: K.mul_cuda(spec, aa, bb), 20)  # through the wrapper, as the prover pays it
         t_p = cuda_ms(lambda: K.mul_plain(spec, aa, bb), 3)
-        times[spec.kind] = (t_k, t_p)
-        log(f"[kernel1] {spec.kind}: {n + len(edges) ** 2} pairs + broadcast exact; "
-            f"2^20 muls kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        times[spec.kind] = (t_k, t_p, t_w)
+        t_s = cuda_ms(lambda: K.mul_cuda(spec, aa, s), 20, queue_ahead=True)
+        b_ms, b_by = mul_bound(spec.kind, n)
+        log(f"[kernel1] {spec.kind}: {n + len(edges) ** 2} pairs + shared operand + ragged "
+            f"sizes exact; 2^20 muls kernel {t_k:.4f} ms (through the wrapper {t_w:.4f} ms, "
+            f"shared operand {t_s:.4f} ms), "
+            f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+    b_ms, b_by = mul_bound("scalar", n)
     rec["kernel1"] = {"max_abs_err": worst, "ms": times["scalar"][0],
-                      "plain_ms": times["scalar"][1], "base": times["base"]}
+                      "plain_ms": times["scalar"][1], "wrapper_ms": times["scalar"][2], "bound_ms": b_ms, "bound_by": b_by,
+                      "base": times["base"]}
 
 
 def _run_sumcheck(fn, tables, degree, rs, snap=True):
@@ -171,7 +258,7 @@ def phase_kernel2(rec: dict) -> None:
     worst = 0
     times = {}
     for degree in (3, 2):
-        for n in (1 << 15, 2, 4, 8):
+        for n in (1 << 15, 2, 4, 8, 16, 32, 64, 256, 1 << 13):
             k = 4 if degree == 3 else 2
             vals = [[rng.randrange(M) for _ in range(n)] for _ in range(k)]
             base = [torch.from_numpy(ints_to_limbs(v).reshape(n, 22)).cuda() for v in vals]
@@ -191,6 +278,15 @@ def phase_kernel2(rec: dict) -> None:
                     if not torch.equal(a, b):
                         raise AssertionError(f"kernel2 deg {degree} n {n}: tables differ after round {rnd}")
                     worst = max(worst, int((a - b).abs().max()))
+            if n == 256:  # the same input three times: the same bits
+                for _ in range(2):
+                    t_again = [t.clone() for t in base]
+                    ev_again, sn_again = _run_sumcheck(SK.sumcheck_round_cuda, t_again, degree, rs)
+                    same = all(torch.equal(x, y) for x, y in zip(ev_again[:-1], ev_k[:-1]))
+                    same = same and all(torch.equal(x, y) for sa, sb in zip(sn_again, sn_k)
+                                        for x, y in zip(sa, sb))
+                    if not same:
+                        raise AssertionError(f"kernel2 deg {degree}: runs on one input differ")
             if n == 1 << 15:
                 def full(fn):
                     tabs = [t.clone() for t in base]
@@ -204,16 +300,26 @@ def phase_kernel2(rec: dict) -> None:
                 tp = full(SK.sumcheck_round_plain)
                 # one bind + evaluate round at the full size (ah = n/2)
                 tabs = [t.clone() for t in base]
-                rk = cuda_ms(lambda: SK.sumcheck_round_cuda(tabs, degree, rs[0], n // 2), 20)
+                rk = cuda_ms(lambda: SK.sumcheck_round_cuda(tabs, degree, rs[0], n // 2), 50,
+                             queue_ahead=True)
+                rw = cuda_ms(lambda: SK.sumcheck_round_cuda(tabs, degree, rs[0], n // 2), 50)
                 rp = cuda_ms(lambda: SK.sumcheck_round_plain(tabs, degree, rs[0], n // 2), 3)
-                times[degree] = (rk, rp)
+                times[degree] = (rk, rp, rw)
+                small = [t[:32].clone() for t in base]  # one block: what a launch costs at least
+                floor = cuda_ms(lambda: SK.sumcheck_round_cuda(small, degree, rs[0], 16), 50,
+                                queue_ahead=True)
+                b_ms, b_by = round_bound(degree, n)
                 log(f"[kernel2] degree {degree} n=2^15: {n.bit_length()} rounds exact; "
-                    f"first bind+eval round kernel {rk:.4f} ms, plain {rp:.4f} ms; "
+                    f"first bind+eval round kernel {rk:.4f} ms (through the wrapper {rw:.4f} ms), "
+                    f"plain {rp:.4f} ms, "
+                    f"bound {b_ms:.4f} ms by {b_by}, a round at 32 rows {floor:.4f} ms; "
                     f"whole sumcheck (host-driven) kernel {tk:.3f} ms, plain {tp:.3f} ms")
             else:
                 log(f"[kernel2] degree {degree} n={n}: all rounds exact")
+    b_ms, b_by = round_bound(3, 1 << 15)
     rec["kernel2"] = {"max_abs_err": worst, "ms": times[3][0], "plain_ms": times[3][1],
-                      "quad": times[2]}
+                      "wrapper_ms": times[3][2],
+                      "bound_ms": b_ms, "bound_by": b_by, "quad": times[2]}
 
 
 def _config(path: str) -> None:
@@ -329,7 +435,9 @@ def phase_profile(rec: dict) -> None:
     the kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from otti_tpu_torch import cli
+    from otti_tpu_torch import _build, cli
+    from otti_tpu_torch.field import kernels as K
+    from otti_tpu_torch.field.ops import BASE, SCALAR
     from otti_tpu_torch.spartan import nizk
 
     with open(os.path.join(REPO, "datasets", "SGD", "pmlb-real-extra.json")) as f:
@@ -338,6 +446,50 @@ def phase_profile(rec: dict) -> None:
     dev = shape.to_device("cuda")
     nizk.prove(dev, vars_, inputs)  # warm: comb table built
     torch.cuda.synchronize()
+
+    # one warm prove with the multiply wrapper's calls written down
+    sizes: dict = {}
+    real_mul = K.mul_cuda
+
+    def recording_mul(spec, a, b):
+        key = (spec.kind, a.numel() // 22, b.dim() == 1)
+        sizes[key] = sizes.get(key, 0) + 1
+        return real_mul(spec, a, b)
+
+    before = dict(_build.LAUNCHES)
+    K.mul_cuda = recording_mul
+    try:
+        nizk.prove(dev, vars_, inputs)
+        torch.cuda.synchronize()
+    finally:
+        K.mul_cuda = real_mul
+    rec["launches_per_prove"] = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    log(f"[profile] launches of one warm optdigits prove: {rec['launches_per_prove']}")
+    gen = torch.Generator().manual_seed(3)
+    for kind in ("scalar", "base"):
+        rows = sorted(((c, n, sh) for (k, n, sh), c in sizes.items() if k == kind),
+                      key=lambda t: -t[0] * t[1])  # by rows multiplied in the prove
+        log(f"[profile] kernel1 {kind} launch sizes (rows: launches): "
+            + ", ".join(f"{n}{'*' if sh else ''}: {c}" for c, n, sh in rows)
+            + "  (*: shared operand)")
+        spec = SCALAR if kind == "scalar" else BASE
+        for rank, (c, n, sh) in enumerate(rows):
+            x = torch.randint(0, 4096, (n, 22), generator=gen, dtype=torch.int32)
+            x[:, 21] = 0
+            x = _semi(x.cuda(), gen)
+            y = x[0].contiguous() if sh else x.flip(0).contiguous()
+            if not torch.equal(real_mul(spec, x, y), K.mul_plain(spec, x, y)):
+                raise AssertionError(
+                    f"kernel1 {kind}: kernel and plain differ at the prover's launch size "
+                    f"n={n}{' shared' if sh else ''}")
+            if rank >= 3:  # timed: the three sizes that multiply most rows in a prove
+                continue
+            t_k = cuda_ms(lambda: real_mul(spec, x, y), 50, queue_ahead=True)
+            t_p = cuda_ms(lambda: K.mul_plain(spec, x, y), 3)
+            b_ms, b_by = mul_bound(kind, n, sh)
+            log(f"[profile] kernel1 {kind} n={n}{' shared' if sh else ''} ({c} launches a prove): "
+                f"kernel {t_k:.5f} ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
+        log(f"[profile] kernel1 {kind}: kernel == plain at each of these {len(rows)} launch shapes")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         nizk.prove(dev, vars_, inputs)
@@ -349,6 +501,10 @@ def phase_profile(rec: dict) -> None:
         f"{busy_us / 1e3:.1f} ms busy ({100 * busy_us / 1e6 / wall:.1f}% of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    for e in events:  # the two hand-written kernels, wherever they rank
+        if "field_mul_kernel" in e.key or "sumcheck_round_kernel" in e.key:
+            log(f"[profile]   own kernel {e.self_device_time_total / 1e3:9.3f} ms  "
+                f"{e.count:6d}x  {e.key[:70]}")
 
 
 def main(argv=None) -> int:
@@ -370,6 +526,9 @@ def main(argv=None) -> int:
         log(f"[{name}] ok ({time.time() - t0:.1f}s)")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    strays = [m for m in sys.modules if m == "otti_tpu" or m.startswith("otti_tpu.")]
+    if strays:
+        raise AssertionError(f"modules of the JAX package were imported: {strays}")
     kernels = []
     launches = rec.get("launches", {})
     for key, cname, src, rep in (
@@ -382,7 +541,13 @@ def main(argv=None) -> int:
             kernels.append({"name": cname, "route": "cuda", "source": src, "replaces": rep,
                             "launches": launches.get(cname, 0),
                             "max_abs_err": rec[key]["max_abs_err"],
-                            "ms": rec[key]["ms"], "plain_ms": rec[key]["plain_ms"]})
+                            "ms": rec[key]["ms"], "plain_ms": rec[key]["plain_ms"],
+                            "bound_ms": rec[key]["bound_ms"],
+                            "bound_by": rec[key]["bound_by"],
+                            "library_ms": None,  # no PyTorch call computes either function
+                            "wrapper_ms": rec[key]["wrapper_ms"],
+                            "launches_per_prove":
+                                rec.get("launches_per_prove", {}).get(cname)})
     log(rec.get("smi", ""))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

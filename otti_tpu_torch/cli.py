@@ -44,8 +44,8 @@ def _stage(msg: str) -> None:
 
 
 def native_backend() -> str:
-    """Which host crypto backend otti_tpu.native loaded."""
-    from otti_tpu import native
+    """Which host crypto backend native.py loaded."""
+    from . import native
 
     return "C++ library" if native.HAVE_NATIVE else "pure-Python fallback"
 
@@ -78,7 +78,7 @@ _SHAPE_CLASSES_SEEN: set = set()
 def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None,
                      device="cuda", extra_meta=None) -> bool:
     """Transparent NIZK prove + verify of one lowered instance on ``device``."""
-    from otti_tpu import metrics
+    from . import metrics
 
     from .spartan import nizk, serial
 
@@ -140,8 +140,8 @@ def _device_name(device) -> str:
 def lower_sgd(dataset: str, params: dict, prob_check: bool = False, timer=None):
     """Host stages of one SGD instance: fetch -> oracle -> lower.
     Returns (shape, vars, inputs, data_source, X.shape)."""
-    from otti_tpu.io import pmlb_local
-    from otti_tpu.oracle import sgd_oracle
+    from .io import pmlb_local
+    from .oracle import sgd_oracle
 
     from .codegen import sgd_cert
 
@@ -166,7 +166,7 @@ def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=False,
             batch=False, snark=False, mesh=None, device="cuda") -> bool:
     """Prove and verify every instance of a PMLB SGD config; artifacts go to
     ``<home_out>/SGD``.  Returns True when every instance verified."""
-    from otti_tpu.io import pmlb_local
+    from .io import pmlb_local
 
     for flag, on in (("zk", zk), ("snark", snark), ("mesh", mesh), ("batch", batch)):
         if on:

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from otti_tpu.field.fields import SCALAR
+from ..field.fields import SCALAR
 
 from ..spartan.r1cs import R1CSShape
 

@@ -1,4 +1,4 @@
-// Kernel 2: one fused sumcheck round over the SCALAR field.
+// Kernel 2: one fused sumcheck round over the SCALAR field, in one launch.
 //
 // Replaces otti_tpu/spartan/pallas_sumcheck.py::_round_kernel (entered
 // through _step_call / step_cubic_pallas) and, beyond it, every XLA round
@@ -6,192 +6,241 @@
 // _round_cubic_kernel / _round_quad_kernel (first round, no bind) and
 // _bind_kernel (the bare final bind).
 //
-// One launch binds the previous challenge r into the active prefix of every
-// table (lo + r * (hi - lo)) and then evaluates the round polynomial:
+// A launch binds the previous challenge r into the active prefix of every
+// table, t[j] <- t[j] + r * (t[j + ah] - t[j]) for j < ah (ah: the previous
+// active half), and then evaluates the round polynomial over the pairs
+// (t[i], t[i + h]), i < h = ah / 2:
 //   cubic (4 tables eq, A, B, C): sum eq_t * (A_t * B_t - C_t), t in {0,2,3}
 //   quad  (2 tables M, Z):        sum M_t * Z_t,                t in {0,2}
-// where X_t = lo + t * (hi - lo) over the (lo, hi) pairs of the bound tables.
+// with X_t = lo + t * (hi - lo).  ah == 0 is the first round (no bind, pairs
+// (i, i + half)); ah == 1 is the bare final bind (row 0 only, no evaluation).
 //
-// In place, race-free: with the previous active half ah, thread i < ah/2
-// reads positions i, i+ah/2, i+ah, i+3ah/2 and writes only i and i+ah/2;
-// every position below ah is read and written by its own thread only.
-// ah == 1 is the bare final bind (thread 0, position 0, no evaluation);
-// ah == 0 means no bind (first round) with pairs (i, i + half).  Every size
-// down to one pair is handled: the grid is ceil(pairs / 128) blocks.
+// What bounds it on an H100: by the card's peaks, bytes: a cubic round on
+// tables of n rows reads 4 n rows of 88 B and writes 2 n (17.3 MB at n = 2^15,
+// 0.005 ms at 3.35 TB/s), while the wide multiplies of its 3.5 n field
+// multiplies would take a third of that at the integer peak.  What holds it
+// in practice is integer throughput all the same: carries, packing,
+// canonicalisations and conditional subtractions make a field multiply about
+// a thousand machine operations, and the SMs run near two integer warp
+// operations a clock through a round.  So the design spreads the multiplies
+// over as many threads as the round has, and keeps memory out of their way:
 //
-// Reduction: each block sums its threads' canonical terms limb by limb in
-// shared memory (exact integers, < 128 * 2^12 per limb) and writes one row
-// of partials; sumcheck_reduce_kernel adds the rows and reduces each of the
-// 2 or 3 sums to a canonical element.  No atomics, so the result is exact
-// and the same on every run.
+//   * A block owns 16 consecutive pairs: rows [i0, i0 + 16) at the four
+//     offsets 0, h, ah, ah + h of each table, 16 segments of 1,408
+//     contiguous bytes in the cubic round.  One thread asks the copy engine
+//     for all of them (cp.async.bulk on one mbarrier).
+//   * Stage 1, one thread per bound element (4 tables x 32 elements = 128
+//     threads, one multiply each): pack to words, canonicalise, bind, keep
+//     the bound words in shared memory for stage 2, and write the bound
+//     limbs over the thread's own row of the loaded tile; bulk stores send
+//     the 8 bound segments back while stage 2 runs.
+//   * Stage 2, one thread per (pair, point): read the bound words of its
+//     pair, extend to the point, two multiplies (cubic) or one (quad).
+//   * The terms are canonical 8-word integers.  A block adds them word by
+//     word (64-bit sums, exact), adds its sums to 24 global accumulators
+//     with integer atomics, and takes a ticket; the block with the last
+//     ticket reads the accumulators, clears them and the ticket for the
+//     next launch, reduces each sum mod l and writes the evaluations.
+//     Integer addition is associative, so the result does not depend on the
+//     order in which blocks arrive: every run gives the same bits.
+//   * Tables of fewer than 16 pairs (the last rounds), a ragged size, or a
+//     pointer that is not 16-byte aligned take the same path with plain
+//     masked loads and stores by all threads.
 //
-// What bounds it on an H100: memory reads at the sizes that matter (4
-// tables x 2^15 x 88 B read, half of that written, per cubic round at 2^15)
-// against 14 field multiplies per pair; the first version loads each
-// element with plain 4-byte loads and spends registers freely.
+// In place and race-free: every position is read into shared memory (the
+// barrier after the load) before any thread of the block writes a table,
+// and no other block touches those rows: block i0 reads rows i0 + [0, 16)
+// + {0, h, ah, ah + h} and writes those at + {0, h}; since i < h and the
+// offsets are multiples of h, a row index determines its (i, offset), so
+// the row sets of two blocks are disjoint.
+//
+// The tensor cores have no part: these are exact 255-bit integers.
+#include "async_copy.cuh"
 #include "field.cuh"
 
-#define SC_THREADS 128
+#define SC_P 16          // pairs per block
+#define SC_MIN_BLOCKS 4  // resident blocks per SM the register count must allow
+#define SC_THREADS (8 * SC_P)  // stage 1: 4 tables x 2 SC_P elements
+#define SC_SEG_WORDS (SC_P * OTTI_NL)
+#define SC_SEG_BYTES (SC_SEG_WORDS * 4)
 #define SC_MAXK 3
+#define SC_TICKET (SC_MAXK * OTTI_NW)  // index of the ticket in the scratch
 
-struct Limbs {
-  int32_t v[OTTI_NL];
+typedef unsigned long long u64;
+
+// A stored row, any semi form -> canonical words.
+__device__ __forceinline__ Fe load_canon(const int32_t* row) {
+  return fe_canon<FIELD_SCALAR>(fe_load_row(row));
+}
+
+// X_t = lo + t * (hi - lo) for t in {0, 2, 3}, lo and hi being elements i
+// and SC_P + i of one table's bound words in shared memory.
+__device__ __forceinline__ Fe ext_point(const uint32_t (*tab)[2 * SC_P], int i, int t) {
+  Fe lo, hi;
+#pragma unroll
+  for (int w = 0; w < OTTI_NW; ++w) lo.w[w] = tab[w][i];
+  if (t == 0) return lo;
+#pragma unroll
+  for (int w = 0; w < OTTI_NW; ++w) hi.w[w] = tab[w][SC_P + i];
+  const Fe d = fe_sub<FIELD_SCALAR>(hi, lo);
+  Fe x = fe_add<FIELD_SCALAR>(lo, fe_add<FIELD_SCALAR>(d, d));
+  if (t == 3) x = fe_add<FIELD_SCALAR>(x, d);
+  return x;
+}
+
+// Segment sg of a block: row offset (sg & 1 ? h : 0) + (sg & 2 ? ah : 0);
+// its rows are the hi halves of pairs when sg & 1, else the lo halves.
+struct Round {
+  int32_t* tab[4];
+  int ntab;
+  Fe r;
+  int64_t ah;      // bind distance (0: no bind)
+  int64_t h;       // pair distance
+  int64_t nlo;     // rows of the lo segments that exist
+  int64_t npairs;  // pairs to evaluate (= rows of the hi segments)
+  int bulk;
 };
 
-// lo + r * (hi - lo), canonical
-__device__ __forceinline__ void bind_pair(const int32_t* lo, const int32_t* hi,
-                                          const int32_t* r, int32_t* out) {
-  int32_t d[OTTI_NL], p[OTTI_NL];
-  fe_sub<FIELD_SCALAR>(hi, lo, d);
-  fe_mul<FIELD_SCALAR>(r, d, p);
-  fe_add<FIELD_SCALAR>(lo, p, out);
-}
+__global__ void __launch_bounds__(SC_THREADS, SC_MIN_BLOCKS)
+sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch,
+                      int32_t* __restrict__ evals) {
+  __shared__ __align__(128) int32_t raw[4][4][SC_SEG_WORDS];
+  __shared__ uint32_t bound[4][OTTI_NW][2 * SC_P];
+  __shared__ uint32_t terms[SC_MAXK][OTTI_NW][SC_P];
+  __shared__ u64 sums[SC_MAXK * OTTI_NW];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ int is_last;
 
-__device__ __forceinline__ void load_canon(const int32_t* p, int32_t* x) {
-  fe_load(p, x);
-  fe_canon<FIELD_SCALAR>(x);
-}
-
-// X_t = lo + t * (hi - lo) for t in {0, 2, 3} given lo and d = hi - lo
-__device__ __forceinline__ void ext_point(const int32_t* lo, const int32_t* d,
-                                          int t, int32_t* out) {
-  if (t == 0) {
-#pragma unroll
-    for (int i = 0; i < OTTI_NL; ++i) out[i] = lo[i];
-    return;
-  }
-  int32_t d2[OTTI_NL];
-  fe_add<FIELD_SCALAR>(d, d, d2);
-  fe_add<FIELD_SCALAR>(lo, d2, out);
-  if (t == 3) {
-    int32_t tmp[OTTI_NL];
-    fe_add<FIELD_SCALAR>(out, d, tmp);
-#pragma unroll
-    for (int i = 0; i < OTTI_NL; ++i) out[i] = tmp[i];
-  }
-}
-
-// Table k's (lo, hi - lo) pair for thread i, after the bind (if any).
-// Bound values are written back in place before they are used.
-__device__ __forceinline__ void pair_of(int32_t* tbl, const int32_t* r,
-                                        int64_t i, int64_t ah, int64_t half,
-                                        int32_t* lo, int32_t* d) {
-  int32_t hi[OTTI_NL];
-  if (ah >= 2) {
-    const int64_t h = ah / 2;
-    int32_t a[OTTI_NL], b[OTTI_NL];
-    load_canon(tbl + i * OTTI_NL, a);
-    load_canon(tbl + (i + ah) * OTTI_NL, b);
-    bind_pair(a, b, r, lo);
-    load_canon(tbl + (i + h) * OTTI_NL, a);
-    load_canon(tbl + (i + h + ah) * OTTI_NL, b);
-    bind_pair(a, b, r, hi);
-    fe_store(tbl + i * OTTI_NL, lo);
-    fe_store(tbl + (i + h) * OTTI_NL, hi);
-  } else {
-    load_canon(tbl + i * OTTI_NL, lo);
-    load_canon(tbl + (i + half) * OTTI_NL, hi);
-  }
-  fe_sub<FIELD_SCALAR>(hi, lo, d);
-}
-
-__global__ void sumcheck_round_kernel(int32_t* t0, int32_t* t1, int32_t* t2,
-                                      int32_t* t3, int ntab, Limbs r,
-                                      int64_t ah, int64_t half, int64_t npairs,
-                                      int32_t* __restrict__ partials) {
-  __shared__ int32_t terms[SC_MAXK][OTTI_NL][SC_THREADS];
   const int tid = threadIdx.x;
-  const int64_t i = (int64_t)blockIdx.x * SC_THREADS + tid;
-  int32_t* tabs[4] = {t0, t1, t2, t3};
-  const int k = ntab == 4 ? 3 : 2;
+  const int64_t i0 = (int64_t)blockIdx.x * SC_P;
+  const bool bind = rd.ah > 0;
+  const int nseg = bind ? 4 : 2;
+  const int k = rd.ntab == 4 ? 3 : 2;
 
-  if (ah == 1) {  // bare final bind: position 0 only
-    if (i == 0) {
-      for (int q = 0; q < ntab; ++q) {
-        int32_t a[OTTI_NL], b[OTTI_NL], o[OTTI_NL];
-        load_canon(tabs[q], a);
-        load_canon(tabs[q] + OTTI_NL, b);
-        bind_pair(a, b, r.v, o);
-        fe_store(tabs[q], o);
+  // ---- load the block's segments into shared memory
+  if (rd.bulk) {
+    if (tid == 0) {
+      mbar_init(&bar, 1);
+      mbar_init_fence();
+      mbar_expect(&bar, (uint32_t)(rd.ntab * nseg * SC_SEG_BYTES));
+      for (int q = 0; q < rd.ntab; ++q)
+        for (int sg = 0; sg < nseg; ++sg) {
+          const int64_t row = i0 + (sg & 1 ? rd.h : 0) + (sg & 2 ? rd.ah : 0);
+          bulk_load(raw[q][sg], rd.tab[q] + row * OTTI_NL, SC_SEG_BYTES, &bar);
+        }
+    }
+    __syncthreads();  // the barrier is initialised before anyone waits on it
+    mbar_wait(&bar, 0);
+  } else {
+    for (int idx = tid; idx < rd.ntab * nseg * SC_SEG_WORDS; idx += SC_THREADS) {
+      const int q = idx / (nseg * SC_SEG_WORDS), rem = idx % (nseg * SC_SEG_WORDS);
+      const int sg = rem / SC_SEG_WORDS, w = rem % SC_SEG_WORDS;
+      const int64_t i = i0 + w / OTTI_NL;
+      if (i < (sg & 1 ? rd.npairs : rd.nlo)) {
+        const int64_t row = i + (sg & 1 ? rd.h : 0) + (sg & 2 ? rd.ah : 0);
+        raw[q][sg][w] = rd.tab[q][row * OTTI_NL + w % OTTI_NL];
       }
     }
-    return;
+    __syncthreads();
   }
 
-  if (i < npairs) {
-    if (ntab == 4) {
-      // cubic: keep (lo, d) of all four tables, then one point at a time
-      int32_t lo[4][OTTI_NL], d[4][OTTI_NL];
-      for (int q = 0; q < 4; ++q) pair_of(tabs[q], r.v, i, ah, half, lo[q], d[q]);
-      const int ts[3] = {0, 2, 3};
-      for (int e = 0; e < 3; ++e) {
-        int32_t x[OTTI_NL], y[OTTI_NL], p[OTTI_NL], w[OTTI_NL];
-        ext_point(lo[1], d[1], ts[e], x);
-        ext_point(lo[2], d[2], ts[e], y);
-        fe_mul<FIELD_SCALAR>(x, y, p);        // A_t * B_t
-        ext_point(lo[3], d[3], ts[e], x);
-        fe_sub<FIELD_SCALAR>(p, x, w);        // - C_t
-        ext_point(lo[0], d[0], ts[e], x);
-        fe_mul<FIELD_SCALAR>(x, w, p);        // eq_t * (...)
+  // ---- stage 1: one thread per (table, element); bind, keep words, restage limbs
+  {
+    const int q = tid / (2 * SC_P), slot = tid % (2 * SC_P);
+    const int sg = slot / SC_P, row = slot % SC_P;
+    if (q < rd.ntab && i0 + row < (sg ? rd.npairs : rd.nlo)) {
+      int32_t* mine = raw[q][sg] + row * OTTI_NL;
+      Fe x = load_canon(mine);
+      if (bind) {
+        const Fe y = load_canon(raw[q][sg + 2] + row * OTTI_NL);
+        x = fe_add<FIELD_SCALAR>(
+            x, fe_mul<FIELD_SCALAR>(rd.r, fe_sub<FIELD_SCALAR>(y, x)));
+        fe_store_row(mine, x);
+      }
 #pragma unroll
-        for (int l = 0; l < OTTI_NL; ++l) terms[e][l][tid] = p[l];
+      for (int w = 0; w < OTTI_NW; ++w) bound[q][w][slot] = x.w[w];
+    }
+  }
+  if (bind && rd.bulk) async_proxy_fence();
+  __syncthreads();
+
+  // ---- bound rows go back to the tables (under stage 2 when by bulk store)
+  if (bind) {
+    if (rd.bulk) {
+      if (tid == 0) {
+        for (int q = 0; q < rd.ntab; ++q)
+          for (int sg = 0; sg < 2; ++sg)
+            bulk_store(rd.tab[q] + (i0 + (sg ? rd.h : 0)) * OTTI_NL, raw[q][sg],
+                       SC_SEG_BYTES);
+        bulk_commit();
       }
     } else {
-      int32_t lo[2][OTTI_NL], d[2][OTTI_NL];
-      for (int q = 0; q < 2; ++q) pair_of(tabs[q], r.v, i, ah, half, lo[q], d[q]);
-      const int ts[2] = {0, 2};
-      for (int e = 0; e < 2; ++e) {
-        int32_t x[OTTI_NL], y[OTTI_NL], p[OTTI_NL];
-        ext_point(lo[0], d[0], ts[e], x);
-        ext_point(lo[1], d[1], ts[e], y);
-        fe_mul<FIELD_SCALAR>(x, y, p);
-#pragma unroll
-        for (int l = 0; l < OTTI_NL; ++l) terms[e][l][tid] = p[l];
+      for (int idx = tid; idx < rd.ntab * 2 * SC_SEG_WORDS; idx += SC_THREADS) {
+        const int q = idx / (2 * SC_SEG_WORDS), rem = idx % (2 * SC_SEG_WORDS);
+        const int sg = rem / SC_SEG_WORDS, w = rem % SC_SEG_WORDS;
+        const int64_t i = i0 + w / OTTI_NL;
+        if (i < (sg ? rd.npairs : rd.nlo))
+          rd.tab[q][(i + (sg ? rd.h : 0)) * OTTI_NL + w % OTTI_NL] = raw[q][sg][w];
       }
     }
-  } else {
-    for (int e = 0; e < k; ++e)
-#pragma unroll
-      for (int l = 0; l < OTTI_NL; ++l) terms[e][l][tid] = 0;
   }
-  __syncthreads();
-  if (tid < k * OTTI_NL) {
-    const int e = tid / OTTI_NL, l = tid % OTTI_NL;
-    int32_t s = 0;  // < 128 * 2^12
-    for (int j = 0; j < SC_THREADS; ++j) s += terms[e][l][j];
-    partials[(int64_t)blockIdx.x * (k * OTTI_NL) + tid] = s;
-  }
-}
+  if (rd.npairs == 0) return;  // bare final bind (never by bulk store)
 
-// partials [nblocks, k*22] -> evals [k, 22] canonical.  One block.
-__global__ void sumcheck_reduce_kernel(const int32_t* __restrict__ partials,
-                                       int64_t nblocks, int k,
-                                       int32_t* __restrict__ evals) {
-  __shared__ long long sums[SC_MAXK * OTTI_NL];
-  const int tid = threadIdx.x;
-  if (tid < k * OTTI_NL) {
-    long long s = 0;  // < nblocks * 2^19
-    for (int64_t b = 0; b < nblocks; ++b) s += partials[b * (k * OTTI_NL) + tid];
-    sums[tid] = s;
+  // ---- stage 2: one thread per (point, pair)
+  if (tid < k * SC_P) {
+    const int e = tid / SC_P, i = tid % SC_P;
+    const int t = e == 0 ? 0 : e + 1;  // points 0, 2, 3
+    Fe term;
+#pragma unroll
+    for (int w = 0; w < OTTI_NW; ++w) term.w[w] = 0;
+    if (i0 + i < rd.npairs) {
+      if (rd.ntab == 4) {
+        const Fe ab = fe_mul<FIELD_SCALAR>(ext_point(bound[1], i, t), ext_point(bound[2], i, t));
+        const Fe w = fe_sub<FIELD_SCALAR>(ab, ext_point(bound[3], i, t));
+        term = fe_mul<FIELD_SCALAR>(ext_point(bound[0], i, t), w);
+      } else {
+        term = fe_mul<FIELD_SCALAR>(ext_point(bound[0], i, t), ext_point(bound[1], i, t));
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < OTTI_NW; ++w) terms[e][w][i] = term.w[w];
   }
   __syncthreads();
-  if (tid < k) {
-    // exact carry in 64 bits first, so the 32-bit reduction sees < 2^12 limbs
-    long long wide[2 * OTTI_NL];
-    for (int l = 0; l < 2 * OTTI_NL; ++l) wide[l] = l < OTTI_NL ? sums[tid * OTTI_NL + l] : 0;
-    long long c = 0;
-    for (int l = 0; l < 2 * OTTI_NL - 1; ++l) {
-      long long v = wide[l] + c;
-      wide[l] = v & OTTI_LM;
-      c = v >> OTTI_LB;
-    }
-    wide[2 * OTTI_NL - 1] += c;
-    int32_t w[2 * OTTI_NL], out[OTTI_NL];
+
+  // ---- exact word sums: block, then card; the last block finishes
+  if (tid < k * OTTI_NW) {
+    const uint32_t* col = terms[tid / OTTI_NW][tid % OTTI_NW];
+    u64 s = 0;
 #pragma unroll
-    for (int l = 0; l < 2 * OTTI_NL; ++l) w[l] = (int32_t)wide[l];
-    fe_reduce44<FIELD_SCALAR>(w, out);
-    fe_store(evals + tid * OTTI_NL, out);
+    for (int i = 0; i < SC_P; ++i) s += col[i];
+    atomicAdd(&scratch[tid], s);
+    __threadfence();
   }
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&scratch[SC_TICKET], 1ull) == (u64)gridDim.x - 1;
+  __syncthreads();
+  if (is_last) {
+    if (tid < k * OTTI_NW) sums[tid] = atomicExch(&scratch[tid], 0ull);
+    if (tid == 0) scratch[SC_TICKET] = 0;
+    __syncthreads();
+    if (tid < k) {
+      // each word sum < npairs * 2^32; the total < npairs * l < 2^284
+      uint32_t r[9];
+      u64 c = 0;
+#pragma unroll
+      for (int w = 0; w < OTTI_NW; ++w) {
+        c += sums[tid * OTTI_NW + w];
+        r[w] = (uint32_t)c;
+        c >>= 32;
+      }
+      r[8] = (uint32_t)c;
+      int32_t x[OTTI_NL];
+      fe_unpack(scalar_canon9(r), x);
+#pragma unroll
+      for (int l = 0; l < OTTI_NL; ++l) evals[tid * OTTI_NL + l] = x[l];
+    }
+  }
+  if (rd.bulk && bind && tid == 0) bulk_wait_all();
 }
 
 extern "C" int otti_sumcheck_init(const int32_t* consts) {
@@ -199,28 +248,35 @@ extern "C" int otti_sumcheck_init(const int32_t* consts) {
 }
 
 // tables: ntab (2 or 4) pointers to [n, 22] int32 device tables, updated in
-// place.  r: 22 canonical limbs in host memory (passed by value).  ah: the
-// previous active half (0: no bind, 1: bare final bind, which evaluates
-// nothing).  half: the pair distance when ah == 0.  Unless ah == 1,
-// partials must hold ceil(pairs / 128) * k * 22 int32 and evals k * 22
-// int32 (k = 3 cubic, 2 quad).  Returns the first non-zero
-// cudaGetLastError() of the launches.
+// place.  r: the 8 words of the canonical challenge in host memory (ignored
+// when ah == 0).  ah: the previous active half (0: no bind, 1: bare final
+// bind, which evaluates nothing).  half: the pair distance when ah == 0.
+// scratch: 25 uint64 on the device, zero before the first launch and left
+// zero by every launch (24 accumulators and the ticket); launches that share
+// it must be ordered on one stream.  evals: k * 22 int32 (k = 3 cubic, 2
+// quad), unused when ah == 1.  Returns the launch's cudaGetLastError().
 extern "C" int otti_sumcheck_round(int32_t* t0, int32_t* t1, int32_t* t2,
-                                   int32_t* t3, int ntab, const int32_t* r_host,
-                                   long long ah, long long half,
-                                   int32_t* partials, int32_t* evals,
-                                   void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  Limbs r;
-  for (int l = 0; l < OTTI_NL; ++l) r.v[l] = r_host ? r_host[l] : 0;
-  const long long npairs = ah >= 2 ? ah / 2 : (ah == 1 ? 1 : half);
-  if (npairs <= 0) return 0;
-  const long long blocks = (npairs + SC_THREADS - 1) / SC_THREADS;
-  sumcheck_round_kernel<<<(unsigned)blocks, SC_THREADS, 0, s>>>(
-      t0, t1, t2, t3, ntab, r, ah, half, npairs, partials);
-  int err = (int)cudaGetLastError();
-  if (err || ah == 1) return err;
-  const int k = ntab == 4 ? 3 : 2;
-  sumcheck_reduce_kernel<<<1, SC_THREADS, 0, s>>>(partials, blocks, k, evals);
+                                   int32_t* t3, int ntab, const uint32_t* r_host,
+                                   long long ah, long long half, u64* scratch,
+                                   int32_t* evals, void* stream) {
+  if ((ntab != 2 && ntab != 4) || ah < 0) return (int)cudaErrorInvalidValue;
+  Round rd;
+  rd.tab[0] = t0;
+  rd.tab[1] = t1;
+  rd.tab[2] = t2;
+  rd.tab[3] = t3;
+  rd.ntab = ntab;
+  for (int w = 0; w < OTTI_NW; ++w) rd.r.w[w] = ah > 0 && r_host ? r_host[w] : 0u;
+  rd.ah = ah;
+  rd.h = ah > 0 ? ah / 2 : half;
+  rd.npairs = rd.h;
+  rd.nlo = ah == 1 ? 1 : rd.h;
+  if (rd.nlo <= 0) return 0;
+  uintptr_t bits = 0;
+  for (int q = 0; q < ntab; ++q) bits |= (uintptr_t)rd.tab[q];
+  rd.bulk = (bits & 15) == 0 && rd.npairs > 0 && rd.npairs % SC_P == 0;
+  const long long blocks = (rd.nlo + SC_P - 1) / SC_P;
+  sumcheck_round_kernel<<<(unsigned)blocks, SC_THREADS, 0, (cudaStream_t)stream>>>(
+      rd, scratch, evals);
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from otti_tpu.field.fields import BASE, LIMB_BITS, N_LIMBS, SCALAR
-from otti_tpu.refimpl import numeric as ref
+from ..field.fields import BASE, LIMB_BITS, N_LIMBS, SCALAR
+from ..refimpl import numeric as ref
 
 from ..field import ops as F
 

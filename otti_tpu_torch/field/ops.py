@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from otti_tpu.field.fields import (  # noqa: F401  (SCALAR, BASE re-exported)
+from ..field.fields import (  # noqa: F401  (SCALAR, BASE re-exported)
     BASE,
     CONV_LIMBS,
     FOLD_LIMB,

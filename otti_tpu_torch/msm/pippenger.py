@@ -20,8 +20,8 @@ import os
 
 import torch
 
-from otti_tpu.field.fields import BASE
-from otti_tpu.native import scalar_mul_host
+from ..field.fields import BASE
+from ..native import scalar_mul_host
 
 from .. import _build
 from ..curve import edwards as E

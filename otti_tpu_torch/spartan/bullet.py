@@ -43,9 +43,9 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-from otti_tpu.refimpl import numeric as ref
-from otti_tpu.transcript.keccak import shake256
-from otti_tpu.transcript.merlin import Transcript
+from ..refimpl import numeric as ref
+from ..transcript.keccak import shake256
+from ..transcript.merlin import Transcript
 
 L_ORDER = ref.L
 
@@ -91,7 +91,7 @@ def prove(
 
     ``rng`` is a pedersen_host.BlindSource for the ZK flavor or None for
     the transparent deterministic flavor (all blinds zero)."""
-    from otti_tpu.native import fold_pairs_host, msm_host
+    from ..native import fold_pairs_host, msm_host
 
     n = len(x)
     # explicit errors (not assert: must survive python -O; ADVICE r02)
@@ -179,7 +179,7 @@ def verify(
     P: ref.EdPoint,
     proof: BulletOpeningProof,
 ) -> bool:
-    from otti_tpu.native import msm_host, ristretto_decode_host
+    from ..native import msm_host, ristretto_decode_host
 
     n = len(a)
     if n == 0 or (n & (n - 1)) or len(G) < n:

@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import functools
 
-from otti_tpu.native import ristretto_encode_host
-from otti_tpu.refimpl import numeric as ref
-from otti_tpu.transcript.keccak import shake256
+from ..native import ristretto_encode_host
+from ..refimpl import numeric as ref
+from ..transcript.keccak import shake256
 
 from ..curve import edwards as E
 from ..msm import pippenger

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from otti_tpu.field.fields import SCALAR
+from ..field.fields import SCALAR
 
 from ..field import ops as F
 

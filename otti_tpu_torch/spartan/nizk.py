@@ -16,10 +16,10 @@ import dataclasses
 
 import torch
 
-from otti_tpu import metrics
-from otti_tpu.field.fields import SCALAR
-from otti_tpu.native import msm_host, ristretto_decode_host
-from otti_tpu.transcript.merlin import Transcript
+from .. import metrics
+from ..field.fields import SCALAR
+from ..native import msm_host, ristretto_decode_host
+from ..transcript.merlin import Transcript
 
 from ..field import ops as F
 from . import bullet, commitments, mle, r1cs, sumcheck

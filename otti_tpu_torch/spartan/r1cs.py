@@ -21,7 +21,7 @@ import random
 import numpy as np
 import torch
 
-from otti_tpu.field.fields import N_LIMBS, SCALAR, ints_to_limbs
+from ..field.fields import N_LIMBS, SCALAR, ints_to_limbs
 
 from ..field import ops as F
 

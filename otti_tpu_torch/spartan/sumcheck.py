@@ -11,8 +11,8 @@ transcript schedule are the JAX package's, so proofs are byte-identical.
 
 from __future__ import annotations
 
-from otti_tpu.field.fields import SCALAR
-from otti_tpu.transcript.merlin import Transcript
+from ..field.fields import SCALAR
+from ..transcript.merlin import Transcript
 
 from ..field import ops as F
 from .sumcheck_kernels import sumcheck_round

@@ -26,13 +26,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from otti_tpu.field.fields import N_LIMBS, SCALAR, int_to_limbs
+from ..field.fields import N_LIMBS, SCALAR
 
 from .. import _build
 from ..field import ops as F
 from ..field.kernels import mul_plain
 
-_THREADS = 128  # SC_THREADS of the kernel
+_SCRATCH_WORDS = 25  # 24 word accumulators and the ticket (SC_TICKET + 1)
+_scratch: dict = {}  # (device index, stream) -> the kernel's zeroed scratch
 
 
 def _check_args(tables, degree, r, prev_half):
@@ -88,9 +89,22 @@ def sumcheck_round_plain(tables, degree: int, r: int | None = None,
     return F.canon(SCALAR, torch.stack(outs))
 
 
+def _scratch_for(dev: torch.device, stream: int) -> torch.Tensor:
+    """The accumulators and ticket of the kernel's cross-block sum: zeroed
+    once here, and left zero by every launch (its last block clears them),
+    so a round costs no memset.  One per device and stream, because
+    launches that share it must be ordered."""
+    key = (dev.index, stream)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.zeros(_SCRATCH_WORDS, dtype=torch.int64, device=dev)
+    return buf
+
+
 def sumcheck_round_cuda(tables, degree: int, r: int | None = None,
                         prev_half: int | None = None):
-    """The round by the CUDA kernel (tables: contiguous int32 CUDA tensors)."""
+    """The round by the CUDA kernel, one launch (tables: contiguous int32
+    CUDA tensors; a previous active half must be a power of two)."""
     n = _check_args(tables, degree, r, prev_half)
     dev = tables[0].device
     for t in tables:
@@ -100,24 +114,27 @@ def sumcheck_round_cuda(tables, degree: int, r: int | None = None,
             raise ValueError("sumcheck_round_cuda: contiguous int32 tables required")
     k = 3 if degree == 3 else 2
     if r is None:
-        ah, half, npairs = 0, n // 2, n // 2
-        r_limbs = np.zeros(N_LIMBS, np.int32)
+        ah, half = 0, n // 2
+        r_words = np.zeros(8, np.uint32)
     else:
         ah, half = prev_half, 0
-        npairs = max(ah // 2, 1)
-        r_limbs = np.ascontiguousarray(int_to_limbs(r % SCALAR.modulus), np.int32)
-    blocks = -(-npairs // _THREADS)
-    partials = torch.empty((blocks, k * N_LIMBS), dtype=torch.int32, device=dev)
-    evals = torch.empty((k, N_LIMBS), dtype=torch.int32, device=dev)
+        if ah & (ah - 1):
+            raise ValueError(f"sumcheck_round_cuda: previous half {ah} is not a power of two")
+        r_words = np.frombuffer((r % SCALAR.modulus).to_bytes(32, "little"), "<u4")
+    stream = _build.stream_ptr(tables[0])
+    evals = None if ah == 1 else torch.empty((k, N_LIMBS), dtype=torch.int32, device=dev)
     ptrs = [t.data_ptr() for t in tables] + [0] * (4 - len(tables))
     lib = _build.library()
     err = lib.otti_sumcheck_round(
-        *ptrs, len(tables), r_limbs.ctypes.data, ah, half,
-        partials.data_ptr(), evals.data_ptr(), _build.stream_ptr(tables[0]),
+        *ptrs, len(tables), r_words.ctypes.data, ah, half,
+        _scratch_for(dev, stream).data_ptr(),
+        0 if evals is None else evals.data_ptr(), stream,
     )
+    if err != 0:  # the scratch may not have been left zero: the next call takes a new one
+        _scratch.pop((dev.index, stream), None)
     _build.check(err, "sumcheck_round")
     _build.LAUNCHES["sumcheck_round"] += 1
-    return None if ah == 1 else evals
+    return evals
 
 
 def sumcheck_round(tables, degree: int, r: int | None = None,

@@ -65,24 +65,33 @@ def test_sum_points_and_affine_pack_roundtrip():
     assert all(b == q.double() for b, q in zip(back, pts))
 
 
-def test_comb_table_matches_jax():
-    """4 generators: the port's doubling-built table against the JAX
-    table (carried across with convert.comb_table), entry for entry."""
-    jtbl, n_win, n_d = JP.fixed_base_tables(4, LABEL)
+N_GENS = 2  # the fewest that cover more than one generator; all 32 windows each
+
+
+@pytest.fixture(scope="module")
+def jax_comb_table():
+    """The JAX package's comb table for N_GENS generators, built once."""
+    return JP.fixed_base_tables(N_GENS, LABEL)
+
+
+def test_comb_table_matches_jax(jax_comb_table):
+    """The port's doubling-built table against the JAX table (carried
+    across with convert.comb_table), entry for entry."""
+    jtbl, n_win, n_d = jax_comb_table
     assert (n_win, n_d) == (TP.N_WIN, TP.N_DIGITS)
-    ours = TP.build_comb_table(_points(4), "cpu")
-    assert ours.shape == (4 * n_win * n_d, 16)
+    ours = TP.build_comb_table(_points(N_GENS), "cpu")
+    assert ours.shape == (N_GENS * n_win * n_d, 16)
     assert torch.equal(ours, convert.comb_table(jtbl["p"])["p"])
 
 
-def test_commit_rows_and_encodings_match_jax():
+def test_commit_rows_and_encodings_match_jax(jax_comb_table):
     rng = np.random.default_rng(5)
-    rows, cols = 2, 4
+    rows, cols = 4, N_GENS
     vals = [int.from_bytes(rng.bytes(40), "little") % M for _ in range(rows * cols)]
     vals[:3] = [0, 1, M - 1]
     W = ints_to_limbs(vals).reshape(rows, cols, -1)
     want = JC.encode_points(JC.commit_rows(jnp.asarray(W), [0] * rows, LABEL))
-    jtbl, _, _ = JP.fixed_base_tables(cols, LABEL)
+    jtbl, _, _ = jax_comb_table
     got = TC.encode_points(TC.commit_rows(convert.limbs(W), LABEL, tbl=convert.comb_table(jtbl["p"])))
     assert got == want
     # and through the port's own (cached) table

@@ -6,6 +6,11 @@ the CPU the port's multiply is its plain version; the CUDA kernel is held
 against that plain version in the ``cuda`` tests, which skip without a card.
 """
 
+import ctypes
+import os
+import shutil
+import subprocess
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,8 +19,11 @@ import torch
 
 from otti_tpu.field import ops as JF
 from otti_tpu.field import pallas_kernels as PK
-from otti_tpu.field.fields import BASE, N_LIMBS, SCALAR, int_to_limbs, ints_to_limbs
+from otti_tpu.field.fields import (
+    BASE, N_LIMBS, SCALAR, int_to_limbs, ints_to_limbs, limbs_to_int,
+)
 from otti_tpu_torch import _build
+from otti_tpu_torch.field import fields as PF
 from otti_tpu_torch.field import kernels as K
 from otti_tpu_torch.field import ops as F
 
@@ -125,19 +133,107 @@ def test_host_codecs_roundtrip():
     assert F.from_ints(SCALAR, []).shape == (0, N_LIMBS)
 
 
+def _value(words):
+    return sum(int(w) << (32 * i) for i, w in enumerate(words))
+
+
 def test_kernel_constants_match_field_specs():
     """The block copied into the kernels' constant memory holds, per field,
-    the modulus limbs, the 23x22 fold matrix and the tail limbs of c."""
+    the 8 words of the modulus, the 4 words of the tail (c, or 19) and
+    2^256 mod p: checked against the port's own field specs (their source)
+    and against the JAX package's."""
     c = _build.field_consts()
-    per = N_LIMBS + 23 * N_LIMBS + 11
-    assert c.shape == (2 * per,)
-    for i, spec in enumerate(SPECS):
-        blk = c[i * per : (i + 1) * per]
-        assert np.array_equal(blk[:N_LIMBS], spec.modulus_limbs)
-        assert np.array_equal(blk[N_LIMBS : N_LIMBS + 23 * N_LIMBS].reshape(23, N_LIMBS),
-                              spec.fold_matrix)
-    assert np.array_equal(c[per - 11 : per], SCALAR.tail_limbs)
-    assert not c[2 * per - 11 :].any()
+    assert c.dtype == np.int32 and c.shape == (2 * _build.CONST_WORDS,)
+    blocks = c.view(np.uint32).reshape(2, _build.CONST_WORDS)
+    for blk, spec in list(zip(blocks, SPECS)) + list(zip(blocks, [PF.SCALAR, PF.BASE])):
+        assert _value(blk[:8]) == spec.modulus
+        assert _value(blk[8:12]) == spec.tail
+        # the folds the kernel relies on
+        if spec.kind == "scalar":
+            assert (1 << 252) % spec.modulus == spec.modulus - _value(blk[8:12])
+            assert blk[12] == 0
+        else:
+            assert (1 << 255) % spec.modulus == _value(blk[8:12]) == 19
+            assert (1 << 256) % spec.modulus == int(blk[12]) == 38
+    assert K.FIELD_IDS == {"scalar": 0, "base": 1}  # the order of the blocks
+
+
+def _edge_pairs(spec, seed, n_random):
+    """(a, b) integer pairs below 2^256: the edges of the kernel's contract
+    and seeded random values, with their semi-form limb rows."""
+    rng = np.random.default_rng(seed)
+    m = spec.modulus
+    top = (1 << spec.semi_bound_bits) - 1
+    edges = [0, 1, m - 1, m, top, (1 << 252) - 1, 1 << 252, (1 << 255) - 19,
+             1 << 255, (1 << 256) - 39, (1 << 256) - 38, (1 << 256) - 1]
+    pairs = [(a, b) for a in edges for b in edges]
+    pairs += [(int.from_bytes(rng.bytes(32), "little"), int.from_bytes(rng.bytes(32), "little"))
+              for _ in range(n_random)]
+
+    def semi(v):
+        x = int_to_limbs(v).astype(np.int64)
+        for _ in range(4):  # limbs above 2^12, and -1 where a limb was 0
+            pos = int(rng.integers(1, N_LIMBS))
+            if rng.random() < 0.5:
+                x[pos] -= 1
+                x[pos - 1] += 1 << 12
+        return x
+
+    a = np.stack([semi(a) for a, _ in pairs]).astype(np.int32)
+    b = np.stack([semi(b) for _, b in pairs]).astype(np.int32)
+    return pairs, a, b
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
+def test_word_model_matches_python_integers(spec):
+    """The Python model of the kernel's word arithmetic (pack, 8x8 product,
+    both reductions, unpack) against ``%`` on the contract's edges and a
+    few hundred seeded values; the model asserts every intermediate range
+    the CUDA code relies on."""
+    pairs, a, b = _edge_pairs(spec, 21, 300)
+    assert (a == -1).any() and (a > 4095).any()
+    for (x, y), ra, rb in zip(pairs, a.tolist(), b.tolist()):
+        got = K.mul_words_model(spec, ra, rb)
+        assert all(0 <= v < 4096 for v in got)
+        assert limbs_to_int(got) == x * y % spec.modulus, (x, y)
+    with pytest.raises(AssertionError):  # 2^256 is outside the contract
+        K.mul_words_model(spec, [0] * 21 + [1 << 4], [1] + [0] * 21)
+
+
+@pytest.fixture(scope="module")
+def host_arith(tmp_path_factory):
+    """csrc/field.cuh compiled for the host (csrc/host_check.cpp)."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++")
+    so = tmp_path_factory.mktemp("host_arith") / "libotti_field_host.so"
+    subprocess.run([cxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-o", str(so),
+                    os.path.join(_build.CSRC_DIR, "host_check.cpp")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    consts = _build.field_consts()
+    lib.otti_host_set_consts(consts.ctypes.data_as(ctypes.c_void_p))
+    return lib
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
+def test_device_arithmetic_on_host_matches_plain(spec, host_arith):
+    """The very C++ the kernels run (fe_pack, fe_mul, fe_canon, fe_add,
+    fe_sub, fe_unpack), compiled for the host, against Python integers and
+    against the plain torch multiply."""
+    pairs, a, b = _edge_pairs(spec, 22, 2000)
+    m, fid = spec.modulus, K.FIELD_IDS[spec.kind]
+    ptr = lambda x: x.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    out = np.zeros_like(a)
+    host_arith.otti_host_mul(ptr(a), ptr(b), ptr(out), ctypes.c_longlong(len(pairs)), fid)
+    assert [limbs_to_int(r) for r in out] == [x * y % m for x, y in pairs]
+    assert out.min() >= 0 and out.max() < 4096
+    assert np.array_equal(out, K.mul_plain(spec, torch.from_numpy(a), torch.from_numpy(b)).numpy())
+    for op, fn in ((0, lambda x, y: x % m), (1, lambda x, y: (x + y) % m),
+                   (2, lambda x, y: (x - y) % m)):
+        host_arith.otti_host_addsub(ptr(a), ptr(b), ptr(out),
+                                    ctypes.c_longlong(len(pairs)), fid, op)
+        assert [limbs_to_int(r) for r in out] == [fn(x, y) for x, y in pairs]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

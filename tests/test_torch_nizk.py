@@ -4,7 +4,7 @@ On the same instance both packages must produce byte-equal proofs
 (``serial.dumps``), each verifier must accept the other's proof after a
 JSON round trip, and a changed public input must be rejected.  The port
 runs on the CPU here (plain versions of its kernels).  A subprocess check
-proves that the port runs without importing jax.
+proves that the port runs without importing jax or any module of otti_tpu.
 """
 
 import os
@@ -41,8 +41,11 @@ def _sgd_small():
 
 
 def _instances():
-    shape_j, zvars = graft._toy_r1cs()
-    shape_t, zvars_t = TR.random_satisfiable()
+    # the toy R1CS at the padded shape of the SGD instance below (64
+    # constraints, 64 variables), so that the JAX prover compiles for one
+    # set of shapes
+    shape_j, zvars = graft._toy_r1cs(n_cons=64, n_vars=64)
+    shape_t, zvars_t = TR.random_satisfiable(64, 64)
     assert zvars_t == zvars
     yield "toy", shape_j, shape_t, zvars, []
     X, y, w = _sgd_small()
@@ -114,6 +117,8 @@ def test_port_runs_without_jax():
         "assert nizk.verify(dev, [], proof)\n"
         "assert serial.loads(serial.dumps(proof)) == proof\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "strays = [m for m in sys.modules if m == 'otti_tpu' or m.startswith('otti_tpu.')]\n"
+        "assert not strays, strays\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
