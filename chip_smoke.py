@@ -3,7 +3,8 @@
     python3 chip_smoke.py            # all phases; needs one CUDA card
 
 Phases (each prints a line; any failure exits non-zero):
-  1. device   the card's name and power limit; the host crypto backend
+  1. device   the card's name and power limit; the host crypto backend, which
+              must be the C++ library (the zk path does hundreds of host MSMs)
   2. build    nvcc builds otti_tpu_torch/csrc/*.cu for sm_90a (one compiler
               per source, side by side); registers, spills and machine
               instructions by opcode of each
@@ -11,17 +12,24 @@ Phases (each prints a line; any failure exits non-zero):
               semi-form pairs + edge values, both fields, shared operand,
               and the ragged sizes n in {1, 127, 129, 4097}
   4. kernel2  sumcheck round kernel == its plain version, full cubic and
-              quadratic sumchecks at n in {2, 4, 8, 16, 32, 64, 256, 2^13,
-              2^15}; the same bits on three runs of one input
+              quadratic sumchecks at n in {2, 4, 8, 16, 32, 64, 256, 2^10,
+              2^11, 2^13, 2^14, 2^15}; the same bits on three runs of one input
   5. main     otti_tpu_torch.cli.run_sgd on optdigits 3v8 and iris 0v1 (real
-              data in datasets/pmlb_cache), cold then warm, both kernels
-              launched, a tampered public input rejected
+              data in datasets/pmlb_cache), cold then warm: first transparent
+              (zk=False), then in zero knowledge (the CLI's default); both
+              kernels launched in each, the saved iris proofs reloaded and
+              verified, a changed public input rejected; iris once more under
+              the "spartan" wire profile, which verifies under it and not
+              under "otti"
   6. cpu_gpu  the same 1,024-constraint R1CS proved on the card and on the
-              CPU gives byte-equal proofs
+              CPU gives byte-equal proofs, transparent and (one blind seed)
+              zero-knowledge; two blind seeds give two proofs
   7. scale    a 2^15-constraint R1CS (128 x 256 Hyrax grid) proved, cold and
-              warm, with the prover's stage times
-  8. profile  a warm optdigits prove: the multiply kernel's launch sizes by
-              field and its time at the most frequent ones, both kernels'
+              warm, transparent then zero-knowledge, with the prover's stage
+              times and the peak device memory of each prove
+  8. profile  a warm optdigits prove, transparent then zero-knowledge: the
+              multiply kernel's launch sizes by field, kernel == plain at
+              each, its time at the most frequent ones, both kernels'
               launches per prove; then torch.profiler over another: the
               device's busy share of the wall time and the top kernels
 
@@ -124,8 +132,11 @@ def phase_device(rec: dict) -> None:
         capture_output=True, text=True, timeout=60,
     )
     rec["smi"] = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unavailable"
-    from otti_tpu_torch import cli
+    from otti_tpu_torch import cli, native
 
+    if not native.HAVE_NATIVE:  # seconds per host MSM on the fallback: another program's times
+        raise AssertionError("the host C++ library did not build or load; "
+                             "the smoke run does not prove through the pure-Python fallback")
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"host crypto: {cli.native_backend()}")
@@ -258,7 +269,7 @@ def phase_kernel2(rec: dict) -> None:
     worst = 0
     times = {}
     for degree in (3, 2):
-        for n in (1 << 15, 2, 4, 8, 16, 32, 64, 256, 1 << 13):
+        for n in (1 << 15, 2, 4, 8, 16, 32, 64, 256, 1 << 10, 1 << 11, 1 << 13, 1 << 14):
             k = 4 if degree == 3 else 2
             vals = [[rng.randrange(M) for _ in range(n)] for _ in range(k)]
             base = [torch.from_numpy(ints_to_limbs(v).reshape(n, 22)).cuda() for v in vals]
@@ -322,132 +333,215 @@ def phase_kernel2(rec: dict) -> None:
                       "bound_ms": b_ms, "bound_by": b_by, "quad": times[2]}
 
 
-def _config(path: str) -> None:
+IRIS = {"classes": [0, 1], "seed": 3, "eta0": 0.1, "maxiter": 1000, "tol": 1e-4}
+
+
+def _config(path: str, names=("optdigits", "iris")) -> None:
     with open(os.path.join(REPO, "datasets", "SGD", "pmlb-real-extra.json")) as f:
         extra = json.load(f)
-    cfg = {
-        "optdigits": extra["optdigits"],
-        # the parameters of tests/test_codegen_sgd.py (iris 0 vs 1, seed 3)
-        "iris": {"classes": [0, 1], "seed": 3, "eta0": 0.1, "maxiter": 1000, "tol": 1e-4},
-    }
+    # iris: the parameters of tests/test_codegen_sgd.py (iris 0 vs 1, seed 3)
+    cfg = {"optdigits": extra["optdigits"], "iris": IRIS}
     with open(path, "w") as f:
-        json.dump(cfg, f)
+        json.dump({k: cfg[k] for k in names}, f)
+
+
+def _drive_run_sgd(rec: dict, tag: str, cfg: str, out_dir: str, names, mode: str, **kw) -> dict:
+    """cli.run_sgd on ``cfg``, cold then warm, with the launch counts set to 0
+    just before and read just after; every instance must verify and its meta
+    must name ``mode``.  Returns the counts."""
+    from otti_tpu_torch import _build, cli
+
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    for capture in ("cold", "warm"):
+        out = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out):
+            ok = cli.run_sgd(cfg, out_dir, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        text = out.getvalue()
+        for line in text.splitlines():
+            log(f"[main:{tag}:{capture}] {line}")
+        if not ok or text.count("Verification successful") != len(names):
+            raise AssertionError(f"main path ({tag}, {capture}) did not verify every instance")
+        for name in names:
+            with open(os.path.join(out_dir, "SGD", name + ".meta.json")) as f:
+                meta = json.load(f)
+            if meta["data_source"] != "pmlb_cache" or not meta["verified"]:
+                raise AssertionError(f"{name}: {meta['data_source']}, verified={meta['verified']}")
+            if meta["mode"] != mode or meta["capture"] != capture:
+                raise AssertionError(f"{name}: mode {meta['mode']!r} capture {meta['capture']!r}, "
+                                     f"expected {mode!r} {capture!r}")
+            pm = meta["prover_metrics"]
+            log(f"[main:{tag}:{capture}] {name}: {meta['num_cons']} constraints, "
+                f"proof {meta['proof_bytes']} B, "
+                f"{pm.get('constraints_per_s')} constraints/s, timings "
+                + json.dumps({k: round(v, 4) for k, v in meta["timings"].items()})
+                + " prover " + json.dumps({k: round(v, 4) for k, v in pm.items()}))
+            rec.setdefault("main", {})[f"{tag}:{name}:{capture}"] = meta
+        log(f"[main:{tag}:{capture}] run_sgd wall {wall:.2f}s")
+    launches = dict(_build.LAUNCHES)
+    log(f"[main:{tag}] kernel launches during this path: {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the {tag} path")
+    return launches
 
 
 def phase_main(rec: dict) -> None:
-    from otti_tpu_torch import _build, cli
-    from otti_tpu_torch.spartan import nizk, serial
+    from otti_tpu_torch import cli
+    from otti_tpu_torch.spartan import nizk, serial, zknizk
 
+    both = ("optdigits", "iris")
     with tempfile.TemporaryDirectory() as tmp:
         cfg = os.path.join(tmp, "smoke.json")
         _config(cfg)
-        for k in _build.LAUNCHES:
-            _build.LAUNCHES[k] = 0
-        for capture in ("cold", "warm"):
-            out = io.StringIO()
-            t0 = time.time()
-            with contextlib.redirect_stdout(out):
-                ok = cli.run_sgd(cfg, tmp, zk=False)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-            text = out.getvalue()
-            for line in text.splitlines():
-                log(f"[main:{capture}] {line}")
-            if not ok or text.count("Verification successful") != 2:
-                raise AssertionError(f"main path ({capture}) did not verify both instances")
-            for name in ("optdigits", "iris"):
-                with open(os.path.join(tmp, "SGD", name + ".meta.json")) as f:
-                    meta = json.load(f)
-                if meta["data_source"] != "pmlb_cache" or not meta["verified"]:
-                    raise AssertionError(f"{name}: {meta['data_source']}, verified={meta['verified']}")
-                pm = meta["prover_metrics"]
-                log(f"[main:{capture}] {name}: {meta['num_cons']} constraints, "
-                    f"proof {meta['proof_bytes']} B, "
-                    f"{pm.get('constraints_per_s')} constraints/s, timings "
-                    + json.dumps({k: round(v, 4) for k, v in meta["timings"].items()})
-                    + " prover " + json.dumps({k: round(v, 4) for k, v in pm.items()}))
-                rec.setdefault("main", {})[f"{name}:{capture}"] = meta
-            log(f"[main:{capture}] run_sgd wall {wall:.2f}s")
-        rec["launches"] = dict(_build.LAUNCHES)
-        log(f"[main] kernel launches during the main path: {rec['launches']}")
-        for k, v in rec["launches"].items():
-            if v <= 0:
-                raise AssertionError(f"kernel {k} was not launched on the main path")
-        # soundness probe: one public input changed must be rejected
-        shape, vars_, inputs, _, _ = cli.lower_sgd(
-            "iris", {"classes": [0, 1], "seed": 3, "eta0": 0.1, "maxiter": 1000, "tol": 1e-4})
+        plain_dir, zk_dir, wire_dir = (os.path.join(tmp, d) for d in ("plain", "zk", "wire"))
+        rec["launches_transparent"] = _drive_run_sgd(
+            rec, "plain", cfg, plain_dir, both, "plain", zk=False)
+        # the CLI's default path: zero knowledge
+        rec["launches"] = _drive_run_sgd(rec, "zk", cfg, zk_dir, both, "zk", zk=True)
+        cfg_iris = os.path.join(tmp, "iris.json")
+        _config(cfg_iris, ("iris",))
+        _drive_run_sgd(rec, "zk-spartan", cfg_iris, wire_dir, ("iris",), "zk-wire-spartan",
+                       zk=True, wire="spartan")
+
+        # reload what was saved; one public input changed must be rejected
+        shape, vars_, inputs, _, _ = cli.lower_sgd("iris", IRIS)
         dev = shape.to_device("cuda")
-        proof = serial.load(os.path.join(tmp, "SGD", "iris.proof.json"))
-        if not nizk.verify(dev, inputs, proof):
-            raise AssertionError("reloaded iris proof does not verify")
         bad = [inputs[0] + 1] + list(inputs[1:])
-        if nizk.verify(dev, bad, proof):
-            raise AssertionError("proof with a changed public input was accepted")
-        log("[main] reloaded iris proof verifies; changed public input rejected")
+        for tag, out_dir, mod, kw in (("plain", plain_dir, nizk, {}),
+                                      ("zk", zk_dir, zknizk, {}),
+                                      ("zk-spartan", wire_dir, zknizk, {"wire": "spartan"})):
+            proof = serial.load(os.path.join(out_dir, "SGD", "iris.proof.json"))
+            want = "ZKNIZKProof" if mod is zknizk else "NIZKProof"
+            if type(proof).__name__ != want:
+                raise AssertionError(f"{tag}: saved proof is a {type(proof).__name__}")
+            if not mod.verify(dev, inputs, proof, **kw):
+                raise AssertionError(f"reloaded iris {tag} proof does not verify")
+            if mod.verify(dev, bad, proof, **kw):
+                raise AssertionError(f"{tag} proof with a changed public input was accepted")
+            if tag == "zk-spartan" and zknizk.verify(dev, inputs, proof, wire="otti"):
+                raise AssertionError("a proof under the spartan profile verified under otti")
+        log("[main] reloaded iris proofs (plain, zk, zk under the spartan profile) verify; "
+            "changed public input rejected by each; the spartan-profile proof is rejected "
+            "under otti")
 
 
 def phase_cpu_gpu(rec: dict) -> None:
-    from otti_tpu_torch.spartan import nizk, r1cs, serial
+    from otti_tpu_torch.spartan import nizk, r1cs, serial, zknizk
 
     shape, zvars = r1cs.random_satisfiable(1024, 256, seed=7)
-    outs = {}
-    for device in ("cuda", "cpu"):
-        t0 = time.time()
-        dev = shape.to_device(device)
-        proof = nizk.prove(dev, zvars, [])
-        if not nizk.verify(dev, [], proof):
-            raise AssertionError(f"{device} proof does not verify")
-        outs[device] = serial.dumps(proof)
-        log(f"[cpu_gpu] {device}: prove+verify {time.time() - t0:.2f}s")
-    if outs["cuda"] != outs["cpu"]:
-        raise AssertionError("GPU and CPU proofs differ")
-    log(f"[cpu_gpu] 1024-constraint proofs byte-equal ({len(outs['cuda'])} B of JSON)")
+    seed = bytes(range(32))
+    provers = (
+        ("plain", lambda dev: nizk.prove(dev, zvars, []), nizk.verify),
+        ("zk", lambda dev: zknizk.prove(dev, zvars, [], seed=seed), zknizk.verify),
+    )
+    for tag, prove, verify in provers:
+        outs = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.time()
+            dev = shape.to_device(device)
+            proof = prove(dev)
+            if not verify(dev, [], proof):
+                raise AssertionError(f"{device} {tag} proof does not verify")
+            outs[device] = serial.dumps(proof)
+            log(f"[cpu_gpu] {tag} {device}: prove+verify {time.time() - t0:.2f}s")
+        if outs["cuda"] != outs["cpu"]:
+            raise AssertionError(f"GPU and CPU {tag} proofs differ")
+        log(f"[cpu_gpu] 1024-constraint {tag} proofs byte-equal ({len(outs['cuda'])} B of JSON)")
+    dev = shape.to_device("cuda")
+    other = serial.dumps(zknizk.prove(dev, zvars, [], seed=b"\x05" * 32))
+    if other == outs["cuda"]:
+        raise AssertionError("two blind seeds gave one zk proof")
+    log("[cpu_gpu] two blind seeds give two zk proofs")
+
+
+def _add_tree_cut(rows: int, cols: int) -> None:
+    """What the blind column costs the commitment's add tree: sum_points over
+    rows x (cols * 32) gathered points (no blind), over rows x ((cols + 1) *
+    32) as the port cuts it (the points beyond the largest power of two
+    folded in first, nothing padded), and over the same padded with
+    identities to the next power of two.  Five rounds in turn, medians."""
+    from otti_tpu_torch.curve import edwards as E
+    from otti_tpu_torch.msm import pippenger
+    from otti_tpu_torch.spartan.nizk import GENS_LABEL
+
+    tbl = pippenger.fixed_base_tables(cols, GENS_LABEL, True, "cuda")["p"]
+    gen = torch.Generator().manual_seed(5)
+    n = (cols + 1) * pippenger.N_WIN
+    idx = torch.randint(0, tbl.shape[0], (rows, n), generator=gen).cuda()
+    pts = E.from_affine_pack(tbl[idx])
+    n_pad = 1 << (n - 1).bit_length()
+    pad = E.identity((rows, n_pad - n), "cuda")
+    cases = {
+        f"{cols * pippenger.N_WIN} (no blind)": E.tree_map(lambda a: a[:, : cols * pippenger.N_WIN], pts),
+        f"{n} (blind, unpadded)": pts,
+        f"{n_pad} (blind, padded)": E.tree_map(lambda a, b: torch.cat([a, b], dim=1), pts, pad),
+    }
+    want = E.to_affine_pack(E.sum_points(cases[f"{n} (blind, unpadded)"], axis=1))
+    if not torch.equal(E.to_affine_pack(E.sum_points(cases[f"{n_pad} (blind, padded)"], axis=1)), want):
+        raise AssertionError("the add tree's sum depends on how it is cut")
+    times = {k: [] for k in cases}
+    for _ in range(5):
+        for k, p in cases.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            E.sum_points(p, axis=1)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    log(f"[scale] add tree of {rows} rows, wall ms (median of 5, launches sent from the host): "
+        + "; ".join(f"{k} {sorted(v)[2]:.2f}" for k, v in times.items())
+        + "; both cuts give the same points")
 
 
 def phase_scale(rec: dict) -> None:
     """The padded size the JAX package ran optdigits at with sklearn's
     weights: 2^15 constraints, 2^15 variables, a 128 x 256 Hyrax grid
-    (256-generator comb table, 128 MiB)."""
-    from otti_tpu_torch.spartan import nizk, r1cs
+    (256-generator comb table, 128 MiB; one generator more with the blind)."""
+    from otti_tpu_torch import metrics
+    from otti_tpu_torch.spartan import nizk, r1cs, zknizk
 
-    metrics = nizk.metrics
     shape, zvars = r1cs.random_satisfiable(1 << 15, 1 << 15, seed=11)
     dev = shape.to_device("cuda")
-    for capture in ("cold", "warm"):
-        metrics.reset()
-        t0 = time.time()
-        proof = nizk.prove(dev, zvars, [])
-        torch.cuda.synchronize()
-        t_prove = time.time() - t0
-        t0 = time.time()
-        ok = nizk.verify(dev, [], proof)
-        t_verify = time.time() - t0
-        if not ok:
-            raise AssertionError("2^15 proof does not verify")
-        snap = {k: round(v, 4) for k, v in metrics.snapshot().items()}
-        log(f"[scale:{capture}] 2^15 x 2^15 R1CS: prove {t_prove:.3f}s verify {t_verify:.3f}s "
-            f"proof {proof.size_bytes()} B; prover " + json.dumps(snap))
-        rec.setdefault("scale", {})[capture] = {"prove_s": t_prove, "verify_s": t_verify, **snap}
+    for tag, mod in (("plain", nizk), ("zk", zknizk)):
+        for capture in ("cold", "warm"):
+            metrics.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            proof = mod.prove(dev, zvars, [])
+            torch.cuda.synchronize()
+            t_prove = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.time()
+            ok = mod.verify(dev, [], proof)
+            t_verify = time.time() - t0
+            if not ok:
+                raise AssertionError(f"2^15 {tag} proof does not verify")
+            snap = {k: round(v, 4) for k, v in metrics.snapshot().items()}
+            log(f"[scale:{tag}:{capture}] 2^15 x 2^15 R1CS: prove {t_prove:.3f}s "
+                f"verify {t_verify:.3f}s proof {proof.size_bytes()} B, peak device memory "
+                f"{peak / 2**20:.1f} MiB; prover " + json.dumps(snap))
+            rec.setdefault("scale", {})[f"{tag}:{capture}"] = {
+                "prove_s": t_prove, "verify_s": t_verify, "peak_bytes": peak, **snap}
+    _add_tree_cut(64, 128)  # the optdigits grid on this machine
+    _add_tree_cut(128, 256)  # the 2^15 grid
 
 
-def phase_profile(rec: dict) -> None:
-    """torch.profiler over one warm optdigits prove: device busy share and
-    the kernels by device time."""
+def _profile_prove(rec: dict, tag: str, prove, covered: set) -> None:
+    """One warm prove with the multiply wrapper's calls written down (launch
+    sizes, kernel == plain at each shape not in ``covered``, the time at the
+    three that multiply most rows), then torch.profiler over another."""
     from torch.profiler import ProfilerActivity, profile
 
-    from otti_tpu_torch import _build, cli
+    from otti_tpu_torch import _build
     from otti_tpu_torch.field import kernels as K
     from otti_tpu_torch.field.ops import BASE, SCALAR
-    from otti_tpu_torch.spartan import nizk
 
-    with open(os.path.join(REPO, "datasets", "SGD", "pmlb-real-extra.json")) as f:
-        params = json.load(f)["optdigits"]
-    shape, vars_, inputs, _, _ = cli.lower_sgd("optdigits", params)
-    dev = shape.to_device("cuda")
-    nizk.prove(dev, vars_, inputs)  # warm: comb table built
+    prove()  # warm: comb table built
     torch.cuda.synchronize()
-
-    # one warm prove with the multiply wrapper's calls written down
     sizes: dict = {}
     real_mul = K.mul_cuda
 
@@ -459,52 +553,88 @@ def phase_profile(rec: dict) -> None:
     before = dict(_build.LAUNCHES)
     K.mul_cuda = recording_mul
     try:
-        nizk.prove(dev, vars_, inputs)
+        prove()
         torch.cuda.synchronize()
     finally:
         K.mul_cuda = real_mul
-    rec["launches_per_prove"] = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    log(f"[profile] launches of one warm optdigits prove: {rec['launches_per_prove']}")
+    per_prove = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    rec.setdefault("launches_per_prove", {})[tag] = per_prove
+    log(f"[profile:{tag}] launches of one warm optdigits prove: {per_prove}")
     gen = torch.Generator().manual_seed(3)
     for kind in ("scalar", "base"):
         rows = sorted(((c, n, sh) for (k, n, sh), c in sizes.items() if k == kind),
                       key=lambda t: -t[0] * t[1])  # by rows multiplied in the prove
-        log(f"[profile] kernel1 {kind} launch sizes (rows: launches): "
+        log(f"[profile:{tag}] kernel1 {kind} launch sizes (rows: launches): "
             + ", ".join(f"{n}{'*' if sh else ''}: {c}" for c, n, sh in rows)
             + "  (*: shared operand)")
         spec = SCALAR if kind == "scalar" else BASE
+        held = 0
         for rank, (c, n, sh) in enumerate(rows):
+            new = (kind, n, sh) not in covered
+            if not new and rank >= 3:
+                continue
             x = torch.randint(0, 4096, (n, 22), generator=gen, dtype=torch.int32)
             x[:, 21] = 0
             x = _semi(x.cuda(), gen)
             y = x[0].contiguous() if sh else x.flip(0).contiguous()
-            if not torch.equal(real_mul(spec, x, y), K.mul_plain(spec, x, y)):
-                raise AssertionError(
-                    f"kernel1 {kind}: kernel and plain differ at the prover's launch size "
-                    f"n={n}{' shared' if sh else ''}")
+            if new:
+                if not torch.equal(real_mul(spec, x, y), K.mul_plain(spec, x, y)):
+                    raise AssertionError(
+                        f"kernel1 {kind}: kernel and plain differ at the prover's launch size "
+                        f"n={n}{' shared' if sh else ''}")
+                covered.add((kind, n, sh))
+                held += 1
             if rank >= 3:  # timed: the three sizes that multiply most rows in a prove
                 continue
             t_k = cuda_ms(lambda: real_mul(spec, x, y), 50, queue_ahead=True)
             t_p = cuda_ms(lambda: K.mul_plain(spec, x, y), 3)
             b_ms, b_by = mul_bound(kind, n, sh)
-            log(f"[profile] kernel1 {kind} n={n}{' shared' if sh else ''} ({c} launches a prove): "
+            log(f"[profile:{tag}] kernel1 {kind} n={n}{' shared' if sh else ''} "
+                f"({c} launches a prove): "
                 f"kernel {t_k:.5f} ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
-        log(f"[profile] kernel1 {kind}: kernel == plain at each of these {len(rows)} launch shapes")
+        log(f"[profile:{tag}] kernel1 {kind}: {len(rows)} launch shapes, kernel == plain held "
+            f"at the {held} not held before")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        nizk.prove(dev, vars_, inputs)
+        prove()
         torch.cuda.synchronize()
         wall = time.time() - t0
     events = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0]
     busy_us = sum(e.self_device_time_total for e in events)
-    log(f"[profile] optdigits warm prove wall {wall * 1e3:.1f} ms, device kernels "
-        f"{busy_us / 1e3:.1f} ms busy ({100 * busy_us / 1e6 / wall:.1f}% of wall)")
+    if busy_us <= 0:
+        raise AssertionError(f"the profiler saw no device time in the {tag} prove")
+    log(f"[profile:{tag}] optdigits warm prove wall {wall * 1e3:.1f} ms, device kernels "
+        f"{busy_us / 1e3:.1f} ms busy ({100 * busy_us / 1e6 / wall:.1f}% of wall), "
+        f"{sum(e.count for e in events)} device launches")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+        log(f"[profile:{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     for e in events:  # the two hand-written kernels, wherever they rank
         if "field_mul_kernel" in e.key or "sumcheck_round_kernel" in e.key:
-            log(f"[profile]   own kernel {e.self_device_time_total / 1e3:9.3f} ms  "
+            log(f"[profile:{tag}]   own kernel {e.self_device_time_total / 1e3:9.3f} ms  "
                 f"{e.count:6d}x  {e.key[:70]}")
+
+
+def phase_profile(rec: dict) -> None:
+    """A warm optdigits prove under the recording wrapper and under
+    torch.profiler: transparent, then zero-knowledge."""
+    from otti_tpu_torch import cli, metrics
+    from otti_tpu_torch.spartan import nizk, zknizk
+
+    with open(os.path.join(REPO, "datasets", "SGD", "pmlb-real-extra.json")) as f:
+        params = json.load(f)["optdigits"]
+    shape, vars_, inputs, _, _ = cli.lower_sgd("optdigits", params)
+    dev = shape.to_device("cuda")
+    covered: set = set()
+    for tag, mod in (("plain", nizk), ("zk", zknizk)):
+        _profile_prove(rec, tag, lambda: mod.prove(dev, vars_, inputs), covered)
+        # host wall without the profiler: three warm proves, stage by stage
+        for _ in range(3):
+            metrics.reset()
+            t0 = time.time()
+            mod.prove(dev, vars_, inputs)
+            torch.cuda.synchronize()
+            log(f"[profile:{tag}] warm prove {1e3 * (time.time() - t0):.1f} ms; prover "
+                + json.dumps({k: round(v, 4) for k, v in metrics.snapshot().items()}))
 
 
 def main(argv=None) -> int:
@@ -546,8 +676,11 @@ def main(argv=None) -> int:
                             "bound_by": rec[key]["bound_by"],
                             "library_ms": None,  # no PyTorch call computes either function
                             "wrapper_ms": rec[key]["wrapper_ms"],
-                            "launches_per_prove":
-                                rec.get("launches_per_prove", {}).get(cname)})
+                            "launches_transparent":
+                                rec.get("launches_transparent", {}).get(cname),
+                            "launches_per_prove": {
+                                tag: per.get(cname)
+                                for tag, per in rec.get("launches_per_prove", {}).items()}})
     log(rec.get("smi", ""))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

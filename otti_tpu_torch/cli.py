@@ -1,17 +1,19 @@
 """Command line and SGD run functions of the port (port of otti_tpu/cli.py).
 
-    python -m otti_tpu_torch.cli --sgd --transparent [--small|--full|--config F]
-                                 [--device cuda|cpu] [--out DIR]
+    python -m otti_tpu_torch.cli --sgd [--small|--full|--config F]
+                                 [--transparent] [--wire otti|spartan]
+                                 [--resume] [--device cuda|cpu] [--out DIR]
 
 Per instance: fetch the dataset -> SGD oracle -> lower the certificate to
-R1CS on the host -> move it to the device -> transparent Spartan NIZK
-prove -> verify, with the JAX CLI's stage lines ("Verification successful
-for <name> [...]") and ``meta.json`` fields.
+R1CS on the host -> move it to the device -> Spartan NIZK prove -> verify,
+with the JAX CLI's stage lines ("Verification successful for <name> [...]")
+and ``meta.json`` fields.  Zero knowledge is the default, as in the JAX
+CLI (spartan/zknizk.py); ``--transparent`` selects the non-hiding NIZK
+(spartan/nizk.py).
 
 Not ported yet, and refused with an error naming the ROADMAP item rather
-than replaced by something else: zero-knowledge proving (the JAX CLI's
-default, so ``--transparent`` is required), ``--snark``, ``--mesh``,
-``--batch``, ``--lp`` and ``--sdp``.
+than replaced by something else: ``--snark``, ``--mesh``, ``--batch``,
+``--lp`` and ``--sdp``.
 """
 
 from __future__ import annotations
@@ -24,8 +26,6 @@ import sys
 import time
 
 REFUSED = {
-    "zk": "zero-knowledge proving is not ported yet (ROADMAP.md item 1.7); "
-          "pass --transparent",
     "snark": "--snark (SNARK mode) is not ported yet (ROADMAP.md item 1.10)",
     "mesh": "--mesh (multi-GPU proving) is not ported yet (ROADMAP.md item 1.12)",
     "batch": "--batch is not ported yet (ROADMAP.md item 1.13)",
@@ -75,30 +75,54 @@ def _sync(device) -> None:
 _SHAPE_CLASSES_SEEN: set = set()
 
 
+# copied from otti_tpu/cli.py::already_verified
+def already_verified(out_dir, name) -> bool:
+    if not out_dir:
+        return False
+    meta = os.path.join(out_dir, name + ".meta.json")
+    try:
+        with open(meta) as f:
+            return bool(json.load(f).get("verified"))
+    except Exception:
+        return False
+
+
 def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None,
-                     device="cuda", extra_meta=None) -> bool:
-    """Transparent NIZK prove + verify of one lowered instance on ``device``."""
+                     zk=True, wire="otti", device="cuda", extra_meta=None) -> bool:
+    """NIZK prove + verify of one lowered instance on ``device``: in zero
+    knowledge (spartan/zknizk.py) or, with ``zk=False``, transparent
+    (spartan/nizk.py).  The wire profile touches only the zk prover."""
     from . import metrics
 
-    from .spartan import nizk, serial
+    from .spartan import nizk, serial, zknizk
+
+    if zk:
+        def prove_fn(d, v, i):
+            return zknizk.prove(d, v, i, wire=wire)
+
+        def verify_fn(d, i, p):
+            return zknizk.verify(d, i, p, wire=wire)
+    else:
+        prove_fn, verify_fn = nizk.prove, nizk.verify
 
     with timer.time("to_device"):
         dev = shape.to_device(device)
         _sync(device)
-    _stage(f"Proving {name}: {shape.num_cons} constraints, "
+    _stage(f"Proving {name}{' (zk)' if zk else ''}: {shape.num_cons} constraints, "
            f"{shape.num_vars} vars, {shape.num_inputs} inputs")
-    cls = (shape.num_cons_padded, shape.num_vars_padded, str(device))
+    mode = ("zk" if zk else "plain") + (f"-wire-{wire}" if wire != "otti" else "")
+    cls = (shape.num_cons_padded, shape.num_vars_padded, mode, str(device))
     capture = "warm" if cls in _SHAPE_CLASSES_SEEN else "cold"
     _SHAPE_CLASSES_SEEN.add(cls)
     metrics.reset()
     with timer.time("prove"):
-        proof = nizk.prove(dev, vars_, inputs)
+        proof = prove_fn(dev, vars_, inputs)
         _sync(device)
     prove_metrics = metrics.snapshot()
     if timer.t.get("prove"):
         prove_metrics["constraints_per_s"] = round(shape.num_cons / timer.t["prove"], 1)
     with timer.time("verify"):
-        ok = nizk.verify(dev, inputs, proof)
+        ok = verify_fn(dev, inputs, proof)
     if ok:
         _stage(f"Verification successful for {name}  "
                f"[{timer.report()}  proof={proof.size_bytes()}B]")
@@ -111,7 +135,7 @@ def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None
             json.dump(
                 {
                     "name": name,
-                    "mode": "plain",
+                    "mode": mode,
                     "capture": capture,
                     "device": _device_name(device),
                     **(extra_meta or {}),
@@ -162,13 +186,16 @@ def lower_sgd(dataset: str, params: dict, prob_check: bool = False, timer=None):
     return shape, vars_, inputs, data_source, X.shape
 
 
-def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=False,
-            batch=False, snark=False, mesh=None, device="cuda") -> bool:
-    """Prove and verify every instance of a PMLB SGD config; artifacts go to
-    ``<home_out>/SGD``.  Returns True when every instance verified."""
+def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
+            resume=False, batch=False, snark=False, mesh=None, wire="otti",
+            device="cuda") -> bool:
+    """Prove and verify every instance of a PMLB SGD config, in zero
+    knowledge unless ``zk=False``; artifacts go to ``<home_out>/SGD``.  With
+    ``resume`` an instance whose meta says it verified is skipped.  Returns
+    True when every instance verified."""
     from .io import pmlb_local
 
-    for flag, on in (("zk", zk), ("snark", snark), ("mesh", mesh), ("batch", batch)):
+    for flag, on in (("snark", snark), ("mesh", mesh), ("batch", batch)):
         if on:
             raise NotImplementedError(REFUSED[flag])
     cfg = pmlb_local.load_config(config_path)
@@ -176,6 +203,9 @@ def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=False,
     ok_all = True
     for dataset, params in cfg.items():
         name = ("prob_" if prob_check else "") + dataset
+        if resume and already_verified(out_dir, name):
+            _stage(f"Skipping {name} (already verified)")
+            continue
         _stage(f"Compile, solve, and prove {dataset}")
         try:
             timer = Timer()
@@ -186,7 +216,7 @@ def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=False,
                 _stage(f"  lowered {name}: {shape.num_cons} constraints [{timer.report()}]")
                 continue
             ok_all &= prove_and_verify(
-                shape, vars_, inputs, name, timer, out_dir, device,
+                shape, vars_, inputs, name, timer, out_dir, zk, wire, device,
                 extra_meta={
                     "data_source": data_source,
                     "data_shape": list(xshape),
@@ -215,9 +245,16 @@ def main(argv=None) -> int:
     parser.add_argument("--out", type=str, default="out")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--no-prove", action="store_true", help="stop after R1CS lowering")
+    parser.add_argument("--resume", action="store_true",
+                        help="skip instances whose meta.json says they verified")
     parser.add_argument("--transparent", action="store_true",
-                        help="non-hiding transparent NIZK (the only mode ported)")
-    parser.add_argument("--zk", action="store_true")
+                        help="non-hiding transparent NIZK")
+    parser.add_argument("--zk", action="store_true",
+                        help="zero-knowledge NIZK (the default; explicit form)")
+    parser.add_argument("--wire", choices=["otti", "spartan"], default="otti",
+                        help="transcript label schedule of the zk prover: 'otti' "
+                             "(native) or 'spartan' (upstream Spartan's label "
+                             "vocabulary; see spartan/wire.py)")
     parser.add_argument("--snark", action="store_true")
     parser.add_argument("--batch", action="store_true")
     parser.add_argument("--mesh", type=str, default=None)
@@ -227,8 +264,7 @@ def main(argv=None) -> int:
     for flag in ("lp", "sdp", "snark", "mesh", "batch"):
         if getattr(args, flag):
             parser.error(REFUSED[flag])
-    if not args.transparent:  # zero knowledge is the default, as in otti_tpu
-        parser.error(REFUSED["zk"])
+    args.zk = not args.transparent  # zero knowledge is the default, as in otti_tpu
     if not args.sgd:
         parser.print_help()
         return 0
@@ -243,7 +279,8 @@ def main(argv=None) -> int:
     ok = True
     for path, prob in configs:
         _stage(f"Running SGD {os.path.basename(path)}")
-        ok &= run_sgd(path, args.out, prove, prob_check=prob, device=args.device)
+        ok &= run_sgd(path, args.out, prove, prob_check=prob, zk=args.zk,
+                      resume=args.resume, wire=args.wire, device=args.device)
     return 0 if ok else 1
 
 

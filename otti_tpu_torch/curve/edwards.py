@@ -72,17 +72,24 @@ def stack(points: list) -> dict:
 
 
 def sum_points(p: dict, axis: int = 0) -> dict:
-    """Tree-reduce a batch of points along ``axis`` (2n adds in log2(n)
-    batched levels; the batch is padded to a power of two with identities)."""
+    """Tree-reduce a batch of points along ``axis``: n - 1 adds in
+    ceil(log2(n)) batched levels.  Where n is no power of two (a blinded Hyrax
+    row sums (cols + 1) * 32 points), the points beyond the largest power of
+    two P below n are first added onto the first n - P, and the tree runs
+    over P: nothing is padded, and every level but that first has a
+    power-of-two width.  The sum does not depend on how the tree is cut."""
     p = tree_map(lambda a: torch.movedim(a, axis, 0), p)
     n = p["x"].shape[0]
-    N = 1 << max(0, (n - 1).bit_length())
-    if N > n:
-        pad = identity((N - n,) + tuple(p["x"].shape[1:-1]), p["x"].device)
-        p = tree_map(lambda a, b: torch.cat([a, b], dim=0), p, pad)
-    while N > 1:
-        N //= 2
-        p = add(tree_map(lambda a: a[:N], p), tree_map(lambda a: a[N:], p))
+    if n == 0:
+        return identity(tuple(p["x"].shape[1:-1]), p["x"].device)
+    half = 1 << (n.bit_length() - 1)
+    if n > half:
+        extra = n - half
+        s = add(tree_map(lambda a: a[:extra], p), tree_map(lambda a: a[half:], p))
+        p = tree_map(lambda a, b: torch.cat([a, b[extra:half]], dim=0), s, p)
+    while half > 1:
+        half //= 2
+        p = add(tree_map(lambda a: a[:half], p), tree_map(lambda a: a[half : 2 * half], p))
     return tree_map(lambda a: a[0], p)
 
 

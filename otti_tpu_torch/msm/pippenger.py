@@ -60,29 +60,42 @@ def build_comb_table(gens: list, device) -> torch.Tensor:
     return E.to_affine_pack(flat)
 
 
-def fixed_base_tables(n_gens: int, label: bytes, device="cpu") -> dict:
-    """Comb tables of the first ``n_gens`` generators of ``label``, cached
-    on disk and per process."""
-    key = (n_gens, label, str(device))
-    tbl = _TABLES.get(key)
-    if tbl is not None:
-        return tbl
+def _packed_table(n_gens: int, label: bytes, with_blind: bool, device) -> torch.Tensor:
+    """The packed comb table from its file under the build directory, or
+    built and saved there.  The table with H is the table without it plus
+    the 32 windows of H, so it costs one more generator where that one is
+    cached already."""
     from ..spartan.commitments import gen_points_host
 
     digest = hashlib.sha256(
-        b"combtbl-v2|%d|%d|%d|%s" % (n_gens, FIXED_BASE_WINDOW, False, label)
+        b"combtbl-v2|%d|%d|%d|%s" % (n_gens, FIXED_BASE_WINDOW, with_blind, label)
     ).hexdigest()[:24]
     path = os.path.join(_build.BUILD_DIR, f"combtbl-{digest}.pt")
     if os.path.exists(path):
-        packed = torch.load(path).to(device)
+        return torch.load(path).to(device)
+    gens, h = gen_points_host(n_gens, label)
+    if with_blind:
+        packed = torch.cat([_packed_table(n_gens, label, False, device),
+                            build_comb_table([h], device)])
     else:
-        packed = build_comb_table(list(gen_points_host(n_gens, label)[0]), device)
-        os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.tmp{os.getpid()}"
-        torch.save(packed.cpu(), tmp)
-        os.replace(tmp, path)
-    tbl = {"p": packed}
-    _TABLES[key] = tbl
+        packed = build_comb_table(list(gens), device)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(packed.cpu(), tmp)
+    os.replace(tmp, path)
+    return packed
+
+
+def fixed_base_tables(n_gens: int, label: bytes, with_blind: bool = False,
+                      device="cpu") -> dict:
+    """Comb tables of the first ``n_gens`` generators of ``label``, cached
+    on disk and per process.  With ``with_blind`` the blinding generator H
+    is the table's last generator (index ``n_gens``); the cache keys carry
+    the flag, so a table with H is never served from one without."""
+    key = (n_gens, label, bool(with_blind), str(device))
+    tbl = _TABLES.get(key)
+    if tbl is None:
+        tbl = _TABLES[key] = {"p": _packed_table(n_gens, label, bool(with_blind), device)}
     return tbl
 
 
@@ -99,15 +112,20 @@ def window_digits(scalars: torch.Tensor) -> torch.Tensor:
 
 
 def msm_fixed_base(n_gens: int, label: bytes, scalar_matrix: torch.Tensor,
-                   tbl: dict | None = None) -> dict:
-    """Batched fixed-base MSM: [rows, cols, 22] scalars (cols <= n_gens)
-    -> [rows] points, sum_c s[r, c] * G_c."""
+                   with_blind: bool = False, tbl: dict | None = None) -> dict:
+    """Batched fixed-base MSM: [rows, cols, 22] scalars (cols <= n_gens, plus
+    one blind column with ``with_blind``) -> [rows] points,
+    sum_c s[r, c] * G_c (+ s[r, -1] * H).  An explicit ``tbl`` must have been
+    built with the same ``with_blind``."""
     device = scalar_matrix.device
     if tbl is None:
-        tbl = fixed_base_tables(n_gens, label, device)
+        tbl = fixed_base_tables(n_gens, label, with_blind, device)
     rows, cols = scalar_matrix.shape[0], scalar_matrix.shape[1]
     digits = window_digits(scalar_matrix)  # [rows, cols, N_WIN]
-    gen_idx = torch.arange(cols, device=device)[None, :, None]
+    gen_idx = torch.arange(cols, device=device)
+    if with_blind:  # the blind scalar is the LAST column -> generator H
+        gen_idx[-1] = n_gens
+    gen_idx = gen_idx[None, :, None]
     win_idx = torch.arange(N_WIN, device=device)[None, None, :]
     flat = (gen_idx * N_WIN + win_idx) * N_DIGITS + digits
     gathered = E.from_affine_pack(tbl["p"][flat.reshape(rows, cols * N_WIN)])

@@ -9,11 +9,15 @@ from __future__ import annotations
 
 import functools
 
+import torch
+
+from ..field.fields import SCALAR
 from ..native import ristretto_encode_host
 from ..refimpl import numeric as ref
 from ..transcript.keccak import shake256
 
 from ..curve import edwards as E
+from ..field import ops as F
 from ..msm import pippenger
 
 
@@ -33,11 +37,18 @@ def gen_points_host(n: int, label: bytes) -> tuple:
     return pts, h
 
 
-def commit_rows(matrix_limbs, label: bytes, tbl: dict | None = None) -> dict:
-    """Hyrax row commitments without blinds: [rows, cols, 22] scalars ->
-    [rows] device points, sum_c W[r, c] * G_c."""
+def commit_rows(matrix_limbs, blinds: list, label: bytes, tbl: dict | None = None) -> dict:
+    """Hyrax row commitments: [rows, cols, 22] scalars and one blind (host
+    int) per row -> [rows] device points, sum_c W[r, c] * G_c + blind_r * H.
+    All-zero blinds commit without the blind column, as the JAX package
+    does.  An explicit ``tbl`` must match: built with H if any blind is
+    nonzero."""
     cols = matrix_limbs.shape[1]
-    return pippenger.msm_fixed_base(cols, label, matrix_limbs, tbl=tbl)
+    with_blinds = any(blinds)
+    if with_blinds:
+        b = F.from_ints(SCALAR, blinds, matrix_limbs.device)
+        matrix_limbs = torch.cat([matrix_limbs, b[:, None, :]], dim=1)
+    return pippenger.msm_fixed_base(cols, label, matrix_limbs, with_blinds, tbl=tbl)
 
 
 def encode_points(batch: dict) -> list:

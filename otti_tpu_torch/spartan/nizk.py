@@ -108,7 +108,8 @@ def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list) -> NIZKProof
     w_flat = _vec(vars_padded, device)
     W = w_flat.reshape(1 << mu_rows, 1 << mu_cols, -1)
     with metrics.timed("commit"):
-        comm_enc = commitments.encode_points(commitments.commit_rows(W, GENS_LABEL))
+        comm_enc = commitments.encode_points(
+            commitments.commit_rows(W, [0] * W.shape[0], GENS_LABEL))
     metrics.add("msm_points", nvp)
     for enc in comm_enc:
         t.append_point(b"poly_commitment", enc)

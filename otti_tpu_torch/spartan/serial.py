@@ -12,9 +12,22 @@ import dataclasses
 import json
 from typing import Any
 
-from . import bullet, nizk
+from . import bullet, nizk, sigma, zknizk, zksumcheck
 
-_CLASSES = {cls.__name__: cls for cls in (bullet.BulletOpeningProof, nizk.NIZKProof)}
+_CLASSES = {
+    cls.__name__: cls
+    for cls in (
+        bullet.BulletOpeningProof,
+        nizk.NIZKProof,
+        zknizk.ZKNIZKProof,
+        zksumcheck.ZKSumcheckProof,
+        sigma.KnowledgeProof,
+        sigma.EqualityProof,
+        sigma.DualBaseEqualityProof,
+        sigma.ProductProof,
+        sigma.DotProductProof,
+    )
+}
 
 
 def _enc(obj: Any) -> Any:

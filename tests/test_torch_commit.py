@@ -92,10 +92,10 @@ def test_commit_rows_and_encodings_match_jax(jax_comb_table):
     W = ints_to_limbs(vals).reshape(rows, cols, -1)
     want = JC.encode_points(JC.commit_rows(jnp.asarray(W), [0] * rows, LABEL))
     jtbl, _, _ = jax_comb_table
-    got = TC.encode_points(TC.commit_rows(convert.limbs(W), LABEL, tbl=convert.comb_table(jtbl["p"])))
+    got = TC.encode_points(TC.commit_rows(convert.limbs(W), [0] * rows, LABEL, tbl=convert.comb_table(jtbl["p"])))
     assert got == want
     # and through the port's own (cached) table
-    assert TC.encode_points(TC.commit_rows(convert.limbs(W), LABEL)) == want
+    assert TC.encode_points(TC.commit_rows(convert.limbs(W), [0] * rows, LABEL)) == want
 
 
 def _instance():
@@ -167,5 +167,5 @@ def test_commit_on_card_matches_cpu():
     rng = np.random.default_rng(7)
     W = ints_to_limbs([int.from_bytes(rng.bytes(40), "little") % M for _ in range(32)])
     W = W.reshape(4, 8, -1)
-    cpu = TC.encode_points(TC.commit_rows(convert.limbs(W), LABEL))
-    assert TC.encode_points(TC.commit_rows(convert.limbs(W, "cuda"), LABEL)) == cpu
+    cpu = TC.encode_points(TC.commit_rows(convert.limbs(W), [0] * 4, LABEL))
+    assert TC.encode_points(TC.commit_rows(convert.limbs(W, "cuda"), [0] * 4, LABEL)) == cpu

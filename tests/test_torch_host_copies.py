@@ -2,9 +2,14 @@
 
 ``otti_tpu_torch`` imports nothing of ``otti_tpu``: it carries copies of the
 field constants, the reference curve arithmetic, Keccak and Merlin, the
-native host binding, the PMLB loader and the SGD oracle.  Each copy is held
-against its original on the same seeded inputs.  Tolerance: exact equality.
+native host binding, the PMLB loader, the SGD oracle, and the host side of
+the zero-knowledge layer (Pedersen commitments, sigma proofs, wire
+profiles).  Each copy is held against its original on the same seeded
+inputs.  Tolerance: exact equality.
 """
+
+import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -14,6 +19,9 @@ from otti_tpu.field import fields as j_fields
 from otti_tpu.io import pmlb_local as j_pmlb
 from otti_tpu.oracle import sgd_oracle as j_oracle
 from otti_tpu.refimpl import numeric as j_ref
+from otti_tpu.spartan import pedersen_host as j_ped
+from otti_tpu.spartan import sigma as j_sigma
+from otti_tpu.spartan import wire as j_wire
 from otti_tpu.transcript import keccak as j_keccak
 from otti_tpu.transcript import merlin as j_merlin
 from otti_tpu_torch import metrics as t_metrics
@@ -22,6 +30,9 @@ from otti_tpu_torch.field import fields as t_fields
 from otti_tpu_torch.io import pmlb_local as t_pmlb
 from otti_tpu_torch.oracle import sgd_oracle as t_oracle
 from otti_tpu_torch.refimpl import numeric as t_ref
+from otti_tpu_torch.spartan import pedersen_host as t_ped
+from otti_tpu_torch.spartan import sigma as t_sigma
+from otti_tpu_torch.spartan import wire as t_wire
 from otti_tpu_torch.transcript import keccak as t_keccak
 from otti_tpu_torch.transcript import merlin as t_merlin
 
@@ -207,3 +218,118 @@ def test_metrics_counters_and_timer():
     assert not hasattr(t_metrics, "profile_trace")
     t_metrics.reset()
     assert t_metrics.snapshot() == {}
+
+
+# ---- the host side of the zero-knowledge layer ----------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("name", ["pedersen_host", "sigma", "wire"])
+def test_zk_host_module_is_a_marked_copy(name):
+    """The copy is its original under one marking line.  Its imports are
+    relative, so they are the same text and reach the port's own modules."""
+    with open(os.path.join(REPO, "otti_tpu", "spartan", name + ".py")) as f:
+        original = f.read()
+    with open(os.path.join(REPO, "otti_tpu_torch", "spartan", name + ".py")) as f:
+        marker, copy = f.readline(), f.read()
+    assert marker == f"# copied from otti_tpu/spartan/{name}.py\n"
+    assert copy == original
+    mod = {"pedersen_host": t_ped, "sigma": t_sigma, "wire": t_wire}[name]
+    for value in vars(mod).values():
+        owner = getattr(value, "__module__", None) or ""
+        assert not owner.startswith("otti_tpu."), (name, value)
+
+
+def test_blind_source_gives_the_same_stream():
+    seed = np.random.default_rng(10).bytes(32)
+    a, b = t_ped.BlindSource(seed), j_ped.BlindSource(seed)
+    assert a.scalars(5) + [a.scalar()] == b.scalars(5) + [b.scalar()]
+    assert a.ctr == b.ctr == 6
+    assert t_ped.BlindSource(b"\x00" * 32).scalar() != t_ped.BlindSource(seed).scalar()
+
+
+def test_pedersen_commitments_equal():
+    vals = [int.from_bytes(np.random.default_rng(11).bytes(40), "little") for _ in range(5)]
+    ga, gb = t_ped.Gens(4, b"copy gens"), j_ped.Gens(4, b"copy gens")
+    assert t_ped.commit(vals[0], vals[1], ga).ristretto_encode() \
+        == j_ped.commit(vals[0], vals[1], gb).ristretto_encode()
+    assert t_ped.commit_vec(vals[:3], vals[4], ga.sub(3)).ristretto_encode() \
+        == j_ped.commit_vec(vals[:3], vals[4], gb.sub(3)).ristretto_encode()
+    enc = t_ped.commit(1, 2, ga).ristretto_encode()
+    assert t_ped.decode(enc).ristretto_encode() == j_ped.decode(enc).ristretto_encode() == enc
+    with pytest.raises(ValueError):
+        t_ped.decode(b"\xff" * 32)
+
+
+def test_wire_profiles_equal():
+    assert sorted(t_wire.PROFILES) == sorted(j_wire.PROFILES) == ["otti", "spartan"]
+    for name in t_wire.PROFILES:
+        assert dataclasses.asdict(t_wire.PROFILES[name]) == dataclasses.asdict(j_wire.PROFILES[name])
+    for mod, merlin in ((t_wire, t_merlin), (j_wire, j_merlin)):
+        assert mod.OTTI.rl(b"sc1", b"r") == b"sc1/r" and mod.SPARTAN.rl(b"sc1", b"r") == b"r"
+    draws = [[mod.PROFILES[n].draw_weights(merlin.Transcript(b"w"), b"sc")
+              for n in ("otti", "spartan")]
+             for mod, merlin in ((t_wire, t_merlin), (j_wire, j_merlin))]
+    assert draws[0] == draws[1] and draws[0][0] != draws[0][1]
+
+
+def _sigma_run(kind, sig, ped, merlin, ref, seed=b"\x09" * 32):
+    """Prove one sigma statement in one package: (proof, the commitments it
+    speaks of as encodings, the public arguments of its verifier)."""
+    L = ref.L
+    r = np.random.default_rng(12)
+    x, y, b1, b2, b3 = (int.from_bytes(r.bytes(40), "little") % L for _ in range(5))
+    gens = ped.Gens(4, b"copy gens")
+    rng = ped.BlindSource(seed)
+    t = merlin.Transcript(b"sigma copy test")
+    if kind == "KnowledgeProof":
+        proof, C = sig.KnowledgeProof.prove(t, gens, x, b1, rng)
+        points = [C]
+    elif kind == "EqualityProof":
+        proof, C1, C2 = sig.EqualityProof.prove(t, gens, x, b1, b2, rng)
+        points = [C1, C2]
+    elif kind == "ProductProof":
+        proof, Cx, Cy, Cz = sig.ProductProof.prove(t, gens, x, b1, y, b2, b3, rng)
+        points = [Cx, Cy, Cz]
+    elif kind == "DualBaseEqualityProof":
+        proof, C1, C2 = sig.DualBaseEqualityProof.prove(
+            t, gens.G[0], gens.G[1], gens.H, x, b1, b2, rng)
+        points = [C1, C2]
+    else:
+        xs, a = [x, y, b3], [3, 5, 7]
+        dot = sum(p * q for p, q in zip(xs, a)) % L
+        proof, Cx, Cy = sig.DotProductProof.prove(t, gens.sub(3), xs, b1, a, dot, b2, rng)
+        points = [Cx, Cy]
+    return proof, [p.ristretto_encode() for p in points], t.challenge_scalar(b"after")
+
+
+def _sigma_verify(kind, proof_fields, encs, sig, ped, merlin):
+    proof = getattr(sig, kind)(**proof_fields)
+    gens = ped.Gens(4, b"copy gens")
+    pts = [ped.decode(e) for e in encs]
+    t = merlin.Transcript(b"sigma copy test")
+    if kind == "DualBaseEqualityProof":
+        return proof.verify(t, gens.G[0], gens.G[1], gens.H, *pts)
+    if kind == "DotProductProof":
+        return proof.verify(t, gens.sub(3), [3, 5, 7], *pts)
+    return proof.verify(t, gens, *pts)
+
+
+@pytest.mark.parametrize("kind", ["KnowledgeProof", "EqualityProof", "ProductProof",
+                                  "DualBaseEqualityProof", "DotProductProof"])
+def test_sigma_proofs_equal_and_cross_verify(kind):
+    """One seed, one proof; each package's verifier accepts the other's
+    proof and rejects it with one response changed."""
+    pa, ea, ca = _sigma_run(kind, t_sigma, t_ped, t_merlin, t_ref)
+    pb, eb, cb = _sigma_run(kind, j_sigma, j_ped, j_merlin, j_ref)
+    fa, fb = ({f.name: getattr(p, f.name) for f in dataclasses.fields(p)} for p in (pa, pb))
+    assert (fa, ea, ca) == (fb, eb, cb)
+    assert _sigma_verify(kind, fb, eb, t_sigma, t_ped, t_merlin)
+    assert _sigma_verify(kind, fa, ea, j_sigma, j_ped, j_merlin)
+    key = "z" if "z" in fa else "z1"
+    z = fa[key]
+    bad = dict(fa, **{key: (z + 1) % t_ref.L if isinstance(z, int)
+                      else type(z)([(z[0] + 1) % t_ref.L] + list(z[1:]))})
+    assert not _sigma_verify(kind, bad, ea, t_sigma, t_ped, t_merlin)
+    assert not _sigma_verify(kind, bad, ea, j_sigma, j_ped, j_merlin)
