@@ -27,11 +27,25 @@ Phases (each prints a line; any failure exits non-zero):
   7. scale    a 2^15-constraint R1CS (128 x 256 Hyrax grid) proved, cold and
               warm, transparent then zero-knowledge, with the prover's stage
               times and the peak device memory of each prove
-  8. profile  a warm optdigits prove, transparent then zero-knowledge: the
-              multiply kernel's launch sizes by field, kernel == plain at
-              each, its time at the most frequent ones, both kernels'
-              launches per prove; then torch.profiler over another: the
-              device's busy share of the wall time and the top kernels
+  8. lp_sdp   otti_tpu_torch.cli.run_lp and run_sdp on instances written from
+              a seed (LPs of 27 x 32 and 117 x 225, the SDP
+              sdpa.random_problem(3, 4, seed=1)), cold then warm in zero
+              knowledge and once transparent; both kernels launched; the
+              small LP written as a zkinterface triple and proved again from
+              it through the command line; a saved proof rejected against
+              the same LP under another tolerance
+  9. snark    SNARK mode (SPARK commitments of the matrices, timed apart as
+              snark_setup) through the CLI's functions on optdigits and on
+              the 2^15 R1CS of phase 7, cold then warm, with peak device
+              memory; both kernels launched; a 256-constraint R1CS proved on
+              the card and on the CPU, the two proofs byte-equal; two
+              tampered proofs rejected
+ 10. profile  a warm optdigits prove, transparent, zero-knowledge, then in
+              SNARK mode: the multiply kernel's launch sizes by field,
+              kernel == plain at each, its time at the most frequent ones,
+              both kernels' launches per prove; then torch.profiler over
+              another: the device's busy share of the wall time and the top
+              kernels
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -43,6 +57,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -57,7 +72,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("device", "build", "kernel1", "kernel2", "main", "cpu_gpu", "scale", "profile")
+PHASES = ("device", "build", "kernel1", "kernel2", "main", "cpu_gpu", "scale", "lp_sdp", "snark",
+          "profile")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -333,6 +349,45 @@ def phase_kernel2(rec: dict) -> None:
                       "bound_ms": b_ms, "bound_by": b_by, "quad": times[2]}
 
 
+def write_lp_mps(path: str, m: int, n: int, seed: int) -> None:
+    """An LP made from a seed, as a free-format MPS file: min c x with
+    A x <= b, x >= 0 (no BOUNDS section).  A >= 0 is sparse with every row
+    and column covered, b = A x0 + slack for an integer x0 >= 0 and c < 0:
+    feasible and bounded by construction, so the LP oracle's row duals close
+    the duality gap."""
+    rng = np.random.default_rng(seed)
+    A = np.zeros((m, n))
+    for j in range(n):
+        rows = rng.choice(m, size=min(m, 3), replace=False)
+        A[rows, j] = rng.integers(1, 10, size=len(rows))
+    for i in range(m):
+        if not A[i].any():
+            A[i, rng.integers(n)] = float(rng.integers(1, 10))
+    b = A @ rng.integers(0, 5, size=n) + rng.integers(0, 4, size=m)
+    c = -rng.integers(1, 10, size=n)
+    with open(path, "w") as f:
+        f.write(f"NAME GEN{m}X{n}\nROWS\n N  COST\n")
+        f.writelines(f" L  R{i}\n" for i in range(m))
+        f.write("COLUMNS\n")
+        for j in range(n):
+            f.write(f"    X{j} COST {float(c[j])!r}\n")
+            f.writelines(f"    X{j} R{i} {float(A[i, j])!r}\n" for i in range(m) if A[i, j])
+        f.write("RHS\n")
+        f.writelines(f"    RHS R{i} {float(b[i])!r}\n" for i in range(m))
+        f.write("ENDATA\n")
+
+
+def write_sdp_dats(path: str, prob) -> None:
+    """An ``SDPProblem`` (io/sdpa.py) as an SDPA sparse file of one block:
+    m, 1, n, b, then the upper triangles of C (matrix 0) and A_1..A_m.
+    ``repr`` of a double parses back to the same double."""
+    with open(path, "w") as f:
+        f.write(f"{prob.m}\n1\n{prob.n}\n" + " ".join(repr(float(v)) for v in prob.b) + "\n")
+        for k, mat in enumerate([prob.C] + list(prob.A)):
+            f.writelines(f"{k} 1 {i + 1} {j + 1} {float(mat[i, j])!r}\n"
+                         for i in range(prob.n) for j in range(i, prob.n) if mat[i, j])
+
+
 IRIS = {"classes": [0, 1], "seed": 3, "eta0": 0.1, "maxiter": 1000, "tol": 1e-4}
 
 
@@ -349,10 +404,9 @@ def _drive_run_sgd(rec: dict, tag: str, cfg: str, out_dir: str, names, mode: str
     """cli.run_sgd on ``cfg``, cold then warm, with the launch counts set to 0
     just before and read just after; every instance must verify and its meta
     must name ``mode``.  Returns the counts."""
-    from otti_tpu_torch import _build, cli
+    from otti_tpu_torch import cli
 
-    for k in _build.LAUNCHES:
-        _build.LAUNCHES[k] = 0
+    _zero_launches()
     for capture in ("cold", "warm"):
         out = io.StringIO()
         t0 = time.time()
@@ -381,12 +435,7 @@ def _drive_run_sgd(rec: dict, tag: str, cfg: str, out_dir: str, names, mode: str
                 + " prover " + json.dumps({k: round(v, 4) for k, v in pm.items()}))
             rec.setdefault("main", {})[f"{tag}:{name}:{capture}"] = meta
         log(f"[main:{tag}:{capture}] run_sgd wall {wall:.2f}s")
-    launches = dict(_build.LAUNCHES)
-    log(f"[main:{tag}] kernel launches during this path: {launches}")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the {tag} path")
-    return launches
+    return _read_launches(f"main:{tag}")
 
 
 def phase_main(rec: dict) -> None:
@@ -460,10 +509,11 @@ def phase_cpu_gpu(rec: dict) -> None:
 
 def _add_tree_cut(rows: int, cols: int) -> None:
     """What the blind column costs the commitment's add tree: sum_points over
-    rows x (cols * 32) gathered points (no blind), over rows x ((cols + 1) *
-    32) as the port cuts it (the points beyond the largest power of two
-    folded in first, nothing padded), and over the same padded with
-    identities to the next power of two.  Five rounds in turn, medians."""
+    rows x (cols * 32) gathered points (no blind) and over rows x ((cols + 1)
+    * 32) as the port cuts it (the points beyond the largest power of two
+    folded in first, nothing padded).  The sum must not depend on the cut: it
+    is held against the same points padded with identities to the next power
+    of two.  Five rounds in turn, medians."""
     from otti_tpu_torch.curve import edwards as E
     from otti_tpu_torch.msm import pippenger
     from otti_tpu_torch.spartan.nizk import GENS_LABEL
@@ -478,10 +528,10 @@ def _add_tree_cut(rows: int, cols: int) -> None:
     cases = {
         f"{cols * pippenger.N_WIN} (no blind)": E.tree_map(lambda a: a[:, : cols * pippenger.N_WIN], pts),
         f"{n} (blind, unpadded)": pts,
-        f"{n_pad} (blind, padded)": E.tree_map(lambda a, b: torch.cat([a, b], dim=1), pts, pad),
     }
-    want = E.to_affine_pack(E.sum_points(cases[f"{n} (blind, unpadded)"], axis=1))
-    if not torch.equal(E.to_affine_pack(E.sum_points(cases[f"{n_pad} (blind, padded)"], axis=1)), want):
+    padded = E.tree_map(lambda a, b: torch.cat([a, b], dim=1), pts, pad)
+    want = E.to_affine_pack(E.sum_points(pts, axis=1))
+    if not torch.equal(E.to_affine_pack(E.sum_points(padded, axis=1)), want):
         raise AssertionError("the add tree's sum depends on how it is cut")
     times = {k: [] for k in cases}
     for _ in range(5):
@@ -530,10 +580,203 @@ def phase_scale(rec: dict) -> None:
     _add_tree_cut(128, 256)  # the 2^15 grid
 
 
-def _profile_prove(rec: dict, tag: str, prove, covered: set) -> None:
+def _zero_launches() -> None:
+    from otti_tpu_torch import _build
+
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+
+
+def _read_launches(tag: str) -> dict:
+    """The counts since _zero_launches; both kernels must have been launched."""
+    from otti_tpu_torch import _build
+
+    launches = dict(_build.LAUNCHES)
+    log(f"[{tag}] kernel launches during this path: {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the {tag} path")
+    return launches
+
+
+def _captured(tag: str, fn, *args, **kw):
+    """fn(...) with its stage lines re-logged under ``tag``; (result, text)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn(*args, **kw)
+    torch.cuda.synchronize()
+    for line in out.getvalue().splitlines():
+        log(f"[{tag}] {line}")
+    return res, out.getvalue()
+
+
+def _check_meta(tag: str, path: str, mode: str, capture=None) -> dict:
+    with open(path) as f:
+        meta = json.load(f)
+    # a first pass reads "warm" where an earlier phase proved this padded shape and mode
+    if not meta["verified"] or meta["mode"] != mode or (capture == "warm" != meta["capture"]):
+        raise AssertionError(f"{path}: verified={meta['verified']} mode {meta['mode']!r} "
+                             f"capture {meta.get('capture')!r}, expected {mode!r} {capture!r}")
+    if meta["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"{path}: ran on {meta['device']!r}")
+    pm = meta["prover_metrics"]
+    log(f"[{tag}] {meta['name']}: {meta['num_cons']} constraints, proof {meta['proof_bytes']} B, "
+        f"{pm.get('constraints_per_s')} constraints/s, timings "
+        + json.dumps({k: round(v, 4) for k, v in meta["timings"].items()})
+        + " prover " + json.dumps({k: round(v, 4) for k, v in pm.items()}))
+    return meta
+
+
+def phase_lp_sdp(rec: dict) -> None:
+    """LP and SDP certificates through cli.run_lp / cli.run_sdp, on files
+    written from a seed (the Netlib and SDPLIB suites are not in the
+    repository): afiro's shape 27 x 32, 117 x 225, and the largest random SDP
+    tried that the oracle solves."""
+    from otti_tpu_torch import _build, cli
+    from otti_tpu_torch.codegen import lp_cert
+    from otti_tpu_torch.io import mps, sdpa
+    from otti_tpu_torch.oracle import lp_oracle
+    from otti_tpu_torch.spartan import serial, zknizk
+
+    with tempfile.TemporaryDirectory() as tmp:
+        lps = []
+        for m, n in ((27, 32), (117, 225)):
+            lps.append(os.path.join(tmp, f"gen{m}x{n}.mps"))
+            write_lp_mps(lps[-1], m, n, seed=1)
+        sdp = os.path.join(tmp, "rand3x4.dat-s")
+        write_sdp_dats(sdp, sdpa.random_problem(3, 4, seed=1)[0])
+        zk_dir, plain_dir = os.path.join(tmp, "zk"), os.path.join(tmp, "plain")
+        jobs = [(cli.run_lp, "LP", p) for p in lps] + [(cli.run_sdp, "SDP", sdp)]
+
+        _zero_launches()
+        per_run = {}
+        for capture in ("cold", "warm"):
+            for fn, kind, path in jobs:
+                name = os.path.basename(path)
+                before = dict(_build.LAUNCHES)
+                ok, text = _captured(f"lp_sdp:zk:{capture}", fn, [path], zk_dir, zk=True)
+                if not ok or "Verification successful for " + name not in text:
+                    raise AssertionError(f"{name} (zk, {capture}) did not verify")
+                _check_meta(f"lp_sdp:zk:{capture}",
+                            os.path.join(zk_dir, kind, name + ".meta.json"), "zk", capture)
+                per_run[name] = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+        rec["launches_lp_sdp"] = _read_launches("lp_sdp:zk")
+        rec.setdefault("launches_per_prove", {}).update(
+            {f"zk+verify:{name}": v for name, v in per_run.items()})
+        log(f"[lp_sdp:zk] launches of one warm prove + verify: {per_run}")
+
+        for fn, kind, path in (jobs[0], jobs[2]):  # once transparent
+            name = os.path.basename(path)
+            ok, _ = _captured("lp_sdp:plain", fn, [path], plain_dir, zk=False)
+            if not ok:
+                raise AssertionError(f"{name} (transparent) did not verify")
+            _check_meta("lp_sdp:plain", os.path.join(plain_dir, kind, name + ".meta.json"),
+                        "plain")
+
+        # the zkinterface triple of the small LP, written and proved again
+        # from the files, through the command line (device: the default)
+        zkif_dir, back_dir = os.path.join(tmp, "zkif"), os.path.join(tmp, "back")
+        rc, _ = _captured("lp_sdp:zkif", cli.main,
+                          ["--lp", "--custom", lps[0], "--emit-zkif", "--out", zkif_dir])
+        base = os.path.join(zkif_dir, "LP", os.path.basename(lps[0]))
+        triple = [base + ext for ext in (".zkif", ".inp.zkif", ".wit.zkif")]
+        if rc != 0 or not all(os.path.getsize(p) > 0 for p in triple):
+            raise AssertionError("--emit-zkif did not write the triple")
+        rc, text = _captured("lp_sdp:zkif", cli.main, ["--verify-zkif"] + triple + ["--out", back_dir])
+        if rc != 0 or "Verification successful" not in text:
+            raise AssertionError("--verify-zkif did not verify the exported instance")
+        a = _check_meta("lp_sdp:zkif", base + ".meta.json", "zk")
+        b = _check_meta("lp_sdp:zkif",
+                        os.path.join(back_dir, os.path.basename(triple[0]) + ".meta.json"), "zk")
+        if (a["num_cons"], a["num_vars"]) != (b["num_cons"], b["num_vars"]):
+            raise AssertionError("the imported instance has another size")
+        log(f"[lp_sdp:zkif] exported {sum(os.path.getsize(p) for p in triple)} B in 3 files, "
+            "imported, proved and verified again")
+
+        # an LP has no public inputs: the statement is the instance and its
+        # tolerance.  The saved proof against the same LP under another delta:
+        prob = mps.parse_mps(lps[0])
+        x, y, _ = lp_oracle.solve(prob)
+        proof = serial.load(os.path.join(zk_dir, "LP", os.path.basename(lps[0]) + ".proof.json"))
+        for delta, want in ((lp_cert.DELTA, True), (0.02, False)):
+            shape, _, inputs = lp_cert.build(prob, x, y, delta=delta)
+            if zknizk.verify(shape.to_device("cuda"), inputs, proof) != want:
+                raise AssertionError(f"saved LP proof under delta={delta}: expected {want}")
+        log("[lp_sdp] the saved LP proof reloads and verifies; against the same LP lowered "
+            "with delta = 0.02 it is rejected")
+
+
+def phase_snark(rec: dict) -> None:
+    """SNARK mode through the CLI's functions: optdigits 3v8 by run_sgd, the
+    2^15 R1CS of phase scale by prove_and_verify (this path at full width)."""
+    from otti_tpu_torch import cli
+    from otti_tpu_torch.spartan import r1cs, serial, snark, spark
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "optdigits.json")
+        _config(cfg, ("optdigits",))
+        shape, zvars = r1cs.random_satisfiable(1 << 15, 1 << 15, seed=11)
+        _zero_launches()
+        for capture in ("cold", "warm"):
+            for name, run in (
+                ("optdigits", lambda: cli.run_sgd(cfg, tmp, zk=False, snark=True)),
+                ("r1cs2p15", lambda: cli.prove_and_verify(
+                    shape, zvars, [], "r1cs2p15", cli.Timer(), os.path.join(tmp, "SGD"),
+                    zk=False, snark=True, device="cuda")),
+            ):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ok, _ = _captured(f"snark:{capture}", run)
+                peak = torch.cuda.max_memory_allocated()
+                if not ok:
+                    raise AssertionError(f"SNARK of {name} ({capture}) did not verify")
+                meta = _check_meta(f"snark:{capture}",
+                                   os.path.join(tmp, "SGD", name + ".meta.json"), "snark", capture)
+                if "snark_setup" not in meta["timings"]:
+                    raise AssertionError("snark_setup was not timed apart")
+                log(f"[snark:{capture}] {name}: snark_setup {meta['timings']['snark_setup']:.3f}s "
+                    f"prove {meta['timings']['prove']:.3f}s verify {meta['timings']['verify']:.3f}s "
+                    f"proof {meta['proof_bytes']} B, peak device memory {peak / 2**20:.1f} MiB "
+                    "(setup, prove and verify)")
+        rec["launches_snark"] = _read_launches("snark")
+        proof = serial.load(os.path.join(tmp, "SGD", "optdigits.proof.json"))
+        if type(proof).__name__ != "SNARKProof":
+            raise AssertionError(f"saved proof is a {type(proof).__name__}")
+
+    # card == CPU, and tampering
+    shape, zvars = r1cs.random_satisfiable(256, 64, seed=7)  # on the CPU a minute at 1,024
+    outs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.time()
+        dev = shape.to_device(device)
+        comm = spark.commit(dev)
+        proof = snark.prove(dev, comm, zvars, [])
+        if not snark.verify(dev, comm, [], proof):
+            raise AssertionError(f"{device} SNARK proof does not verify")
+        outs[device] = (serial.dumps(proof), comm.transcript_bytes())
+        log(f"[snark] 256-constraint R1CS on {device}: commit+prove+verify {time.time() - t0:.2f}s")
+        if device == "cuda":
+            ea, eb, ec = proof.evals_abc
+            sp = proof.spark_proof
+            mod = snark.MOD
+            bad_eval = dataclasses.replace(proof, evals_abc=(ea, (eb + 1) % mod, ec))
+            bad_sum = dataclasses.replace(proof, spark_proof=dataclasses.replace(
+                sp, s_R_row=(sp.s_R_row + 1) % mod))
+            if snark.verify(dev, comm, [], bad_eval) or snark.verify(dev, comm, [], bad_sum):
+                raise AssertionError("a tampered SNARK proof was accepted")
+    if outs["cuda"] != outs["cpu"]:
+        raise AssertionError("GPU and CPU SNARK proofs (or SPARK commitments) differ")
+    log(f"[snark] card and CPU SNARK proofs byte-equal ({len(outs['cuda'][0])} B of JSON); "
+        "a tampered evals_abc and a tampered s_R_row rejected")
+
+
+def _profile_prove(rec: dict, tag: str, prove, covered: set, host_ops: bool = True) -> None:
     """One warm prove with the multiply wrapper's calls written down (launch
     sizes, kernel == plain at each shape not in ``covered``, the time at the
-    three that multiply most rows), then torch.profiler over another."""
+    three that multiply most rows), then torch.profiler over another: device
+    kernels, and with ``host_ops`` the host's operators too (a SNARK prove
+    makes ten times the launches, and tracing its host side takes a minute)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from otti_tpu_torch import _build
@@ -594,18 +837,28 @@ def _profile_prove(rec: dict, tag: str, prove, covered: set) -> None:
                 f"kernel {t_k:.5f} ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
         log(f"[profile:{tag}] kernel1 {kind}: {len(rows)} launch shapes, kernel == plain held "
             f"at the {held} not held before")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops \
+        else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.time()
         prove()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    events = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0]
+    # The rows of kernels and device copies only.  A host operator's row
+    # carries the time of the kernels it launched as well: a sum over all rows
+    # with device time counts every kernel twice.
+    rows = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0]
+    events = [e for e in rows if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us <= 0:
         raise AssertionError(f"the profiler saw no device time in the {tag} prove")
     log(f"[profile:{tag}] optdigits warm prove wall {wall * 1e3:.1f} ms, device kernels "
         f"{busy_us / 1e3:.1f} ms busy ({100 * busy_us / 1e6 / wall:.1f}% of wall), "
         f"{sum(e.count for e in events)} device launches")
+    if host_ops:
+        log(f"[profile:{tag}] summed over the operators' rows too: "
+            f"{sum(e.self_device_time_total for e in rows) / 1e3:.1f} ms, "
+            f"{sum(e.count for e in rows)} rows' calls")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile:{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     for e in events:  # the two hand-written kernels, wherever they rank
@@ -616,22 +869,26 @@ def _profile_prove(rec: dict, tag: str, prove, covered: set) -> None:
 
 def phase_profile(rec: dict) -> None:
     """A warm optdigits prove under the recording wrapper and under
-    torch.profiler: transparent, then zero-knowledge."""
+    torch.profiler: transparent, zero-knowledge, then in SNARK mode."""
     from otti_tpu_torch import cli, metrics
-    from otti_tpu_torch.spartan import nizk, zknizk
+    from otti_tpu_torch.spartan import nizk, snark, spark, zknizk
 
     with open(os.path.join(REPO, "datasets", "SGD", "pmlb-real-extra.json")) as f:
         params = json.load(f)["optdigits"]
     shape, vars_, inputs, _, _ = cli.lower_sgd("optdigits", params)
     dev = shape.to_device("cuda")
     covered: set = set()
-    for tag, mod in (("plain", nizk), ("zk", zknizk)):
-        _profile_prove(rec, tag, lambda: mod.prove(dev, vars_, inputs), covered)
+    comm = spark.commit(dev)
+    provers = (("plain", lambda: nizk.prove(dev, vars_, inputs)),
+               ("zk", lambda: zknizk.prove(dev, vars_, inputs)),
+               ("snark", lambda: snark.prove(dev, comm, vars_, inputs)))
+    for tag, prove in provers:
+        _profile_prove(rec, tag, prove, covered, host_ops=tag != "snark")
         # host wall without the profiler: three warm proves, stage by stage
         for _ in range(3):
             metrics.reset()
             t0 = time.time()
-            mod.prove(dev, vars_, inputs)
+            prove()
             torch.cuda.synchronize()
             log(f"[profile:{tag}] warm prove {1e3 * (time.time() - t0):.1f} ms; prover "
                 + json.dumps({k: round(v, 4) for k, v in metrics.snapshot().items()}))
@@ -649,7 +906,8 @@ def main(argv=None) -> int:
     rec: dict = {}
     fns = {"device": phase_device, "build": phase_build, "kernel1": phase_kernel1,
            "kernel2": phase_kernel2, "main": phase_main, "cpu_gpu": phase_cpu_gpu,
-           "scale": phase_scale, "profile": phase_profile}
+           "scale": phase_scale, "lp_sdp": phase_lp_sdp, "snark": phase_snark,
+           "profile": phase_profile}
     for name in phases:
         t0 = time.time()
         fns[name](rec)
@@ -678,6 +936,8 @@ def main(argv=None) -> int:
                             "wrapper_ms": rec[key]["wrapper_ms"],
                             "launches_transparent":
                                 rec.get("launches_transparent", {}).get(cname),
+                            "launches_lp_sdp": rec.get("launches_lp_sdp", {}).get(cname),
+                            "launches_snark": rec.get("launches_snark", {}).get(cname),
                             "launches_per_prove": {
                                 tag: per.get(cname)
                                 for tag, per in rec.get("launches_per_prove", {}).items()}})

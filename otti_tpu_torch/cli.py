@@ -1,19 +1,31 @@
-"""Command line and SGD run functions of the port (port of otti_tpu/cli.py).
+"""Command line and run functions of the port (port of otti_tpu/cli.py).
 
+    python -m otti_tpu_torch.cli --lp  [--small|--full|--custom FILE] [--delta D]
+    python -m otti_tpu_torch.cli --sdp [--small|--full|--custom FILE] [--epsilon E]
     python -m otti_tpu_torch.cli --sgd [--small|--full|--config F]
-                                 [--transparent] [--wire otti|spartan]
-                                 [--resume] [--device cuda|cpu] [--out DIR]
+    python -m otti_tpu_torch.cli --verify-zkif CIRCUIT [INPUTS] WITNESS
+        common: [--transparent | --snark] [--wire otti|spartan] [--emit-zkif]
+                [--resume] [--no-prove] [--device cuda|cpu] [--out DIR]
 
-Per instance: fetch the dataset -> SGD oracle -> lower the certificate to
-R1CS on the host -> move it to the device -> Spartan NIZK prove -> verify,
-with the JAX CLI's stage lines ("Verification successful for <name> [...]")
-and ``meta.json`` fields.  Zero knowledge is the default, as in the JAX
+Per instance: parse or fetch -> solver oracle -> lower the certificate to
+R1CS on the host -> move it to the device -> prove -> verify, with the JAX
+CLI's stage lines ("Verification successful for <name> [...]") and
+``meta.json`` fields; artifacts go to ``<out>/LP``, ``<out>/SDP`` and
+``<out>/SGD``.  While one instance is proved on the device, the next one is
+lowered on a worker thread.  Zero knowledge is the default, as in the JAX
 CLI (spartan/zknizk.py); ``--transparent`` selects the non-hiding NIZK
-(spartan/nizk.py).
+(spartan/nizk.py) and ``--snark`` SNARK mode (spartan/snark.py: the
+matrices committed once by spartan/spark.py, timed as ``snark_setup``).
+``--small``/``--full`` read the Otti suites under ``--datasets``
+(``LP/MPS-small``, ``SDP/small``, ``SGD/pmlb-small.json``, ...); only the
+SGD configs are in this repository.
 
-Not ported yet, and refused with an error naming the ROADMAP item rather
-than replaced by something else: ``--snark``, ``--mesh``, ``--batch``,
-``--lp`` and ``--sdp``.
+There is one prover per mode: the JAX CLI's choice between its
+host-transcript, fused and hybrid device-transcript provers (made for a
+device reached through a slow link) has no counterpart here, and neither
+have the environment variables that steer it.  Not ported yet, and refused
+with an error naming the ROADMAP item rather than replaced by something
+else: ``--mesh`` and ``--batch``.
 """
 
 from __future__ import annotations
@@ -24,13 +36,11 @@ import json
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REFUSED = {
-    "snark": "--snark (SNARK mode) is not ported yet (ROADMAP.md item 1.10)",
     "mesh": "--mesh (multi-GPU proving) is not ported yet (ROADMAP.md item 1.12)",
     "batch": "--batch is not ported yet (ROADMAP.md item 1.13)",
-    "lp": "--lp is not ported yet (ROADMAP.md item 1.9)",
-    "sdp": "--sdp is not ported yet (ROADMAP.md item 1.9)",
 }
 
 DEFAULT_DATASETS = os.environ.get(
@@ -87,30 +97,74 @@ def already_verified(out_dir, name) -> bool:
         return False
 
 
+# copied from otti_tpu/cli.py::_lower_ahead
+def _lower_ahead(items, lower_fn):
+    """1-ahead pipeline stage overlap: yields (item, future) with item i+1
+    lowering on a worker thread while the caller proves item i on device.
+    Lookahead is bounded to ONE instance, so a full suite never buffers
+    every lowered witness in memory."""
+    items = list(items)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        fut = ex.submit(lower_fn, items[0]) if items else None
+        for i, item in enumerate(items):
+            cur = fut
+            fut = ex.submit(lower_fn, items[i + 1]) if i + 1 < len(items) else None
+            yield item, cur
+
+
+def _refuse(mesh, batch) -> None:
+    for flag, on in (("mesh", mesh), ("batch", batch)):
+        if on:
+            raise NotImplementedError(REFUSED[flag])
+
+
 def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None,
-                     zk=True, wire="otti", device="cuda", extra_meta=None) -> bool:
-    """NIZK prove + verify of one lowered instance on ``device``: in zero
-    knowledge (spartan/zknizk.py) or, with ``zk=False``, transparent
-    (spartan/nizk.py).  The wire profile touches only the zk prover."""
+                     zk=True, snark=False, emit_zkif=False, wire="otti", device="cuda",
+                     extra_meta=None) -> bool:
+    """Prove + verify of one lowered instance on ``device``: in zero
+    knowledge (spartan/zknizk.py), transparent with ``zk=False``
+    (spartan/nizk.py), or in SNARK mode with ``snark=True``
+    (spartan/snark.py).  The wire profile touches only the zk prover.  With
+    ``emit_zkif`` the instance is also written as a zkinterface triple
+    (<name>.zkif, .inp.zkif, .wit.zkif) that ``--verify-zkif`` reads back."""
     from . import metrics
 
-    from .spartan import nizk, serial, zknizk
+    from .spartan import nizk, serial, snark as snark_mod, spark, zknizk
 
-    if zk:
-        def prove_fn(d, v, i):
-            return zknizk.prove(d, v, i, wire=wire)
+    if emit_zkif and out_dir:
+        from .io import zkif as zkif_mod
 
-        def verify_fn(d, i, p):
-            return zknizk.verify(d, i, p, wire=wire)
-    else:
-        prove_fn, verify_fn = nizk.prove, nizk.verify
-
+        os.makedirs(out_dir, exist_ok=True)
+        with timer.time("emit_zkif"):
+            zkif_mod.export_r1cs(shape, vars_, inputs, os.path.join(out_dir, name))
     with timer.time("to_device"):
         dev = shape.to_device(device)
         _sync(device)
-    _stage(f"Proving {name}{' (zk)' if zk else ''}: {shape.num_cons} constraints, "
+    if snark:
+        mode, tag = "snark", " (snark)"
+        with timer.time("snark_setup"):
+            comm = spark.commit(dev)
+            _sync(device)
+
+        def prove_fn(d, v, i):
+            return snark_mod.prove(d, comm, v, i)
+
+        def verify_fn(d, i, p):
+            return snark_mod.verify(d, comm, i, p)
+    else:
+        mode = ("zk" if zk else "plain") + (f"-wire-{wire}" if wire != "otti" else "")
+        tag = " (zk)" if zk else ""
+        if zk:
+            def prove_fn(d, v, i):
+                return zknizk.prove(d, v, i, wire=wire)
+
+            def verify_fn(d, i, p):
+                return zknizk.verify(d, i, p, wire=wire)
+        else:
+            prove_fn, verify_fn = nizk.prove, nizk.verify
+
+    _stage(f"Proving {name}{tag}: {shape.num_cons} constraints, "
            f"{shape.num_vars} vars, {shape.num_inputs} inputs")
-    mode = ("zk" if zk else "plain") + (f"-wire-{wire}" if wire != "otti" else "")
     cls = (shape.num_cons_padded, shape.num_vars_padded, mode, str(device))
     capture = "warm" if cls in _SHAPE_CLASSES_SEEN else "cold"
     _SHAPE_CLASSES_SEEN.add(cls)
@@ -186,37 +240,143 @@ def lower_sgd(dataset: str, params: dict, prob_check: bool = False, timer=None):
     return shape, vars_, inputs, data_source, X.shape
 
 
+def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delta=None,
+           emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda") -> bool:
+    """Prove and verify the optimality certificate of every MPS file:
+    parse -> LP oracle -> lower -> prove; artifacts go to ``<home_out>/LP``.
+    One failing instance does not stop the others.  Returns True when every
+    instance verified."""
+    from .io import mps
+    from .oracle import lp_oracle
+
+    from .codegen import lp_cert
+
+    _refuse(mesh, batch)
+    ok_all = True
+    out_dir = os.path.join(home_out, "LP")
+
+    def lower_one(path):
+        timer = Timer()
+        with timer.time("parse"):
+            prob = mps.parse_mps(path)
+        with timer.time("oracle"):
+            x, y, opt = lp_oracle.solve(prob)
+        with timer.time("lower"):
+            kw = {} if delta is None else {"delta": delta}
+            shape, vars_, inputs = lp_cert.build(prob, x, y, **kw)
+        return shape, vars_, inputs, opt, timer
+
+    todo = [p for p in files
+            if not (resume and already_verified(out_dir, os.path.basename(p)))]
+    for p in files:
+        if p not in todo:
+            _stage(f"Skipping {os.path.basename(p)} (already verified)")
+    for path, fut in _lower_ahead(todo, lower_one):
+        name = os.path.basename(path)
+        _stage(f"Compiling {name}")
+        try:
+            shape, vars_, inputs, opt, timer = fut.result()
+            _stage(f"  oracle optimum {opt:.4f}")
+            if prove:
+                ok_all &= prove_and_verify(shape, vars_, inputs, name, timer, out_dir, zk,
+                                           snark, emit_zkif, wire, device)
+            else:
+                _stage(f"  lowered {name}: {shape.num_cons} constraints [{timer.report()}]")
+        except Exception as e:  # fail-soft per instance, as the JAX CLI
+            _stage(f"INSTANCE FAILED {name}: {type(e).__name__}: {e}")
+            ok_all = False
+    return ok_all
+
+
+def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, epsilon=None,
+            emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda") -> bool:
+    """Prove and verify the optimality certificate of every SDPA sparse
+    (``.dat-s``) file: parse -> SDP oracle -> Cholesky witnesses -> lower ->
+    prove; artifacts go to ``<home_out>/SDP``.  A file of another kind is
+    reported and left out."""
+    from .io import sdpa
+    from .oracle import sdp_oracle
+
+    from .codegen import sdp_cert
+
+    _refuse(mesh, batch)
+    ok_all = True
+    out_dir = os.path.join(home_out, "SDP")
+
+    def lower_one(path):
+        timer = Timer()
+        with timer.time("parse"):
+            prob = sdpa.parse_dats(path)
+        with timer.time("oracle"):
+            X, y, S = sdp_oracle.solve(prob)
+        with timer.time("lower"):
+            Lx = sdp_oracle.cholesky_witness(X)
+            Ls = sdp_oracle.cholesky_witness(S)
+            kw = {} if epsilon is None else {"epsilon": epsilon}
+            shape, vars_, inputs = sdp_cert.build(prob, X, y, Lx, Ls, **kw)
+        return shape, vars_, inputs, timer
+
+    todo = []
+    for path in files:
+        name = os.path.basename(path)
+        if not name.endswith(".dat-s"):
+            _stage(f"ERROR: {name} is not a dat-s file")
+            continue
+        if resume and already_verified(out_dir, name):
+            _stage(f"Skipping {name} (already verified)")
+            continue
+        todo.append(path)
+    for path, fut in _lower_ahead(todo, lower_one):
+        name = os.path.basename(path)
+        _stage(f"Making certificate for {name}")
+        try:
+            shape, vars_, inputs, timer = fut.result()
+            if prove:
+                ok_all &= prove_and_verify(shape, vars_, inputs, name, timer, out_dir, zk,
+                                           snark, emit_zkif, wire, device)
+            else:
+                _stage(f"  lowered {name}: {shape.num_cons} constraints [{timer.report()}]")
+        except Exception as e:
+            _stage(f"INSTANCE FAILED {name}: {type(e).__name__}: {e}")
+            ok_all = False
+    return ok_all
+
+
 def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
-            resume=False, batch=False, snark=False, mesh=None, wire="otti",
+            resume=False, batch=False, snark=False, emit_zkif=False, mesh=None, wire="otti",
             device="cuda") -> bool:
     """Prove and verify every instance of a PMLB SGD config, in zero
-    knowledge unless ``zk=False``; artifacts go to ``<home_out>/SGD``.  With
-    ``resume`` an instance whose meta says it verified is skipped.  Returns
-    True when every instance verified."""
+    knowledge unless ``zk=False`` or ``snark=True``; artifacts go to
+    ``<home_out>/SGD``.  With ``resume`` an instance whose meta says it
+    verified is skipped.  Returns True when every instance verified."""
     from .io import pmlb_local
 
-    for flag, on in (("snark", snark), ("mesh", mesh), ("batch", batch)):
-        if on:
-            raise NotImplementedError(REFUSED[flag])
+    _refuse(mesh, batch)
     cfg = pmlb_local.load_config(config_path)
     out_dir = os.path.join(home_out, "SGD")
     ok_all = True
+
+    def lower_one(item):
+        timer = Timer()
+        return lower_sgd(item[0], item[1], prob_check, timer) + (timer,)
+
+    todo = []
     for dataset, params in cfg.items():
         name = ("prob_" if prob_check else "") + dataset
         if resume and already_verified(out_dir, name):
             _stage(f"Skipping {name} (already verified)")
             continue
+        todo.append((dataset, params, name))
+    for (dataset, params, name), fut in _lower_ahead(todo, lower_one):
         _stage(f"Compile, solve, and prove {dataset}")
         try:
-            timer = Timer()
-            shape, vars_, inputs, data_source, xshape = lower_sgd(
-                dataset, params, prob_check, timer)
+            shape, vars_, inputs, data_source, xshape, timer = fut.result()
             _stage(f"  data: {data_source} ({xshape[0]}x{xshape[1]})")
             if not prove:
                 _stage(f"  lowered {name}: {shape.num_cons} constraints [{timer.report()}]")
                 continue
             ok_all &= prove_and_verify(
-                shape, vars_, inputs, name, timer, out_dir, zk, wire, device,
+                shape, vars_, inputs, name, timer, out_dir, zk, snark, emit_zkif, wire, device,
                 extra_meta={
                     "data_source": data_source,
                     "data_shape": list(xshape),
@@ -235,13 +395,17 @@ def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="otti-tpu-torch")
     group = parser.add_mutually_exclusive_group()
-    group.add_argument("--small", action="store_true")
-    group.add_argument("--full", action="store_true")
+    group.add_argument("--small", action="store_true",
+                       help="the small Otti suite under --datasets (the default)")
+    group.add_argument("--full", action="store_true", help="the full Otti suite")
+    group.add_argument("--custom", type=str, help="one MPS (--lp) or .dat-s (--sdp) file")
     group.add_argument("--config", type=str, help="an SGD config JSON (PMLB format)")
-    parser.add_argument("--sgd", action="store_true")
-    parser.add_argument("--lp", action="store_true")
-    parser.add_argument("--sdp", action="store_true")
-    parser.add_argument("--datasets", type=str, default=DEFAULT_DATASETS)
+    parser.add_argument("--lp", action="store_true", help="LP optimality certificates")
+    parser.add_argument("--sdp", action="store_true", help="SDP optimality certificates")
+    parser.add_argument("--sgd", action="store_true", help="SGD training certificates")
+    parser.add_argument("--datasets", type=str, default=DEFAULT_DATASETS,
+                        help="root of LP/MPS-small, LP/MPS-full, SDP/small, SDP/full and "
+                             "SGD/*.json (only the SGD configs are in this repository)")
     parser.add_argument("--out", type=str, default="out")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--no-prove", action="store_true", help="stop after R1CS lowering")
@@ -251,24 +415,87 @@ def main(argv=None) -> int:
                         help="non-hiding transparent NIZK")
     parser.add_argument("--zk", action="store_true",
                         help="zero-knowledge NIZK (the default; explicit form)")
+    parser.add_argument("--snark", action="store_true",
+                        help="SNARK mode: commit A, B, C once (SPARK), so that the verifier "
+                             "never touches the sparse matrices")
+    parser.add_argument("--delta", type=float, default=None,
+                        help="LP certificate tolerance (a parameter of the statement)")
+    parser.add_argument("--epsilon", type=float, default=None,
+                        help="SDP certificate tolerance (a parameter of the statement)")
     parser.add_argument("--wire", choices=["otti", "spartan"], default="otti",
                         help="transcript label schedule of the zk prover: 'otti' "
                              "(native) or 'spartan' (upstream Spartan's label "
                              "vocabulary; see spartan/wire.py)")
-    parser.add_argument("--snark", action="store_true")
-    parser.add_argument("--batch", action="store_true")
-    parser.add_argument("--mesh", type=str, default=None)
+    parser.add_argument("--emit-zkif", action="store_true",
+                        help="also write each instance as a zkinterface triple "
+                             "(<name>.zkif, .inp.zkif, .wit.zkif)")
+    parser.add_argument("--verify-zkif", nargs="+", metavar="ZKIF",
+                        help="prove and verify an imported zkinterface instance: "
+                             "<circuit.zkif> <wit.zkif>, or the triple "
+                             "<circuit.zkif> <inp.zkif> <wit.zkif>")
+    parser.add_argument("--batch", action="store_true", help="not ported yet")
+    parser.add_argument("--mesh", type=str, default=None, help="not ported yet")
     args = parser.parse_args(argv)
+    if args.zk and args.snark:
+        parser.error("--zk and --snark are mutually exclusive")
     if args.zk and args.transparent:
         parser.error("--zk and --transparent are mutually exclusive")
-    for flag in ("lp", "sdp", "snark", "mesh", "batch"):
+    if args.batch and args.snark:
+        parser.error("--batch and --snark are mutually exclusive")
+    for flag in ("mesh", "batch"):
         if getattr(args, flag):
             parser.error(REFUSED[flag])
-    args.zk = not args.transparent  # zero knowledge is the default, as in otti_tpu
+    # zero knowledge is the default, as in otti_tpu; --transparent and --snark opt out
+    args.zk = not (args.transparent or args.snark)
+    prove = not args.no_prove
+    common = dict(zk=args.zk, resume=args.resume, snark=args.snark, emit_zkif=args.emit_zkif,
+                  wire=args.wire, device=args.device)
+
+    def listdir(sub):
+        d = os.path.join(args.datasets, sub)
+        if not os.path.isdir(d):
+            parser.error(f"no directory {d}: this suite is not in the repository; pass "
+                         "--datasets DIR, or one file with --custom")
+        return sorted(os.path.join(d, f) for f in os.listdir(d) if not f.startswith("."))
+
+    if args.verify_zkif:
+        from .io import zkif as zkif_mod
+
+        if len(args.verify_zkif) == 2:
+            (circuit, wit), inp = args.verify_zkif, None
+        elif len(args.verify_zkif) == 3:
+            circuit, inp, wit = args.verify_zkif
+        else:
+            parser.error("--verify-zkif takes 2 or 3 files")
+        _stage(f"Importing {circuit}")
+        shape, vars_, inputs = zkif_mod.import_r1cs(circuit, wit, inp)
+        ok = prove_and_verify(shape, vars_, inputs, os.path.basename(circuit), Timer(),
+                              args.out, args.zk, args.snark, wire=args.wire,
+                              device=args.device)
+        return 0 if ok else 1
+    if args.lp or args.sdp:
+        kind, sub = ("LP", "LP/MPS-") if args.lp else ("SDP", "SDP/")
+        if args.config:
+            parser.error("--config is for --sgd; use --custom FILE with --lp and --sdp")
+        if args.custom:
+            files = [args.custom]
+            _stage(f"Running {kind} custom data")
+        else:
+            size = "full" if args.full else "small"
+            files = listdir(sub + size)
+            _stage(f"Running {kind} {size} Otti dataset")
+        if args.lp:
+            ok = run_lp(files, args.out, prove, delta=args.delta, **common)
+        else:
+            ok = run_sdp(files, args.out, prove, epsilon=args.epsilon, **common)
+        return 0 if ok else 1
     if not args.sgd:
         parser.print_help()
         return 0
-    prove = not args.no_prove
+    if args.custom:
+        parser.error("--sgd has no --custom mode (SGD instances come from the "
+                     "pmlb-small/full/prob.json config lists or --config); use "
+                     "--lp/--sdp --custom for single files")
     if args.config:
         configs = [(args.config, False)]
     elif args.full:
@@ -279,8 +506,7 @@ def main(argv=None) -> int:
     ok = True
     for path, prob in configs:
         _stage(f"Running SGD {os.path.basename(path)}")
-        ok &= run_sgd(path, args.out, prove, prob_check=prob, zk=args.zk,
-                      resume=args.resume, wire=args.wire, device=args.device)
+        ok &= run_sgd(path, args.out, prove, prob_check=prob, **common)
     return 0 if ok else 1
 
 

@@ -104,30 +104,8 @@ def scalars_to_bits(scalars: torch.Tensor, n_bits: int = 256) -> torch.Tensor:
 
 
 def batch_inv(x: torch.Tensor) -> torch.Tensor:
-    """Inverses of NONZERO BASE elements [n, 22] by Montgomery's trick with
-    parallel prefix and suffix products (2 log2 n batched multiplies) and
-    one inversion of the total product on the host."""
-    n = x.shape[0]
-    N = 1 << max(1, (n - 1).bit_length())
-    one = F.ones(BASE, (1,), x.device)
-    xp = torch.cat([x, one.expand(N - n, N_LIMBS)]) if N > n else x
-
-    def scan(vals: torch.Tensor, reverse: bool) -> torch.Tensor:
-        d = 1
-        while d < N:
-            shifted = torch.cat([vals[d:], one.expand(d, N_LIMBS)]) if reverse else \
-                torch.cat([one.expand(d, N_LIMBS), vals[:-d]])
-            vals = F.mul(BASE, vals, shifted)
-            d *= 2
-        return vals
-
-    pre = scan(xp, False)  # pre[i] = x_0 ... x_i
-    suf = scan(xp, True)  # suf[i] = x_i ... x_{N-1}
-    total = F.to_int(BASE, pre[-1])
-    tinv = F.from_int(BASE, pow(total, ref.P - 2, ref.P), x.device)
-    pre_s = torch.cat([one, pre[:-1]])
-    suf_s = torch.cat([suf[1:], one])
-    return F.mul(BASE, F.mul(BASE, pre_s, suf_s), tinv)[:n]
+    """Inverses of BASE elements [n, 22] (``field.ops.inv``: 0 -> 0)."""
+    return F.inv(BASE, x)
 
 
 def to_affine_pack(p: dict) -> torch.Tensor:

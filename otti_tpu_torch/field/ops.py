@@ -223,6 +223,42 @@ def mul_small(spec: FieldSpec, a: torch.Tensor, k: int) -> torch.Tensor:
     return reduce_wide(spec, a.to(I64) * k)
 
 
+def inv(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """1 / x element by element, 0 -> 0 (canonical).  Montgomery's trick
+    with parallel prefix and suffix products: 2 log2(n) + 2 batched
+    multiplies whatever the values, and one inversion of the total product
+    on the host.  Zeros are replaced by 1 in the products and give 0."""
+    flat = x.reshape(-1, N_LIMBS)
+    n = flat.shape[0]
+    if n == 0:
+        return flat.reshape(x.shape).clone()
+    zero = is_zero(spec, flat)
+    one = ones(spec, (1,), x.device)
+    vals = torch.where(zero[:, None], one, flat)
+    size = 1 << (n - 1).bit_length()
+    if size > n:
+        vals = torch.cat([vals, one.expand(size - n, N_LIMBS)])
+
+    def scan(v: torch.Tensor, reverse: bool) -> torch.Tensor:
+        d = 1
+        while d < size:
+            pad = one.expand(d, N_LIMBS)
+            v = mul(spec, v, torch.cat([v[d:], pad]) if reverse else torch.cat([pad, v[:-d]]))
+            d *= 2
+        return v
+
+    pre = scan(vals, False)  # pre[i] = x_0 ... x_i
+    suf = scan(vals, True)  # suf[i] = x_i ... x_{size-1}
+    total_inv = from_int(spec, pow(to_int(spec, pre[-1]), spec.modulus - 2, spec.modulus), x.device)
+    others = mul(spec, torch.cat([one, pre[:-1]]), torch.cat([suf[1:], one]))
+    out = mul(spec, others, total_inv)[:n]
+    return torch.where(zero[:, None], torch.zeros_like(out), out).reshape(x.shape)
+
+
+def is_zero(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    return (canon(spec, a) == 0).all(dim=-1)
+
+
 def canon(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     """Canonical representative in [0, m) of a semi value (< 3m): an exact
     carry and two conditional subtractions of m, on 48-bit words."""

@@ -9,8 +9,10 @@ table gather per (column, window) digit and a balanced tree of adds.
 The table is built by doubling instead of by 256 sequential additions per
 window: the window bases 2^(8 win) G_j are scalar multiples computed on the
 host, and the 256 multiples of every base come from 8 batched device levels
-(2k = dbl(k), 2k + 1 = 2k + base).
-It is cached under ``otti_tpu_torch/build/``, keyed like the JAX cache.
+(2k = dbl(k), 2k + 1 = 2k + base).  For a CPU device it is built by host
+integer arithmetic instead (``build_comb_table_host``, the same bits).
+It is cached under ``otti_tpu_torch/build/``, keyed like the JAX cache, and
+a table of fewer generators of one label is a prefix of a wider one.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ from __future__ import annotations
 import hashlib
 import os
 
+import numpy as np
 import torch
 
 from ..field.fields import BASE
 from ..native import scalar_mul_host
+from ..refimpl import numeric as ref
 
 from .. import _build
 from ..curve import edwards as E
@@ -60,6 +64,41 @@ def build_comb_table(gens: list, device) -> torch.Tensor:
     return E.to_affine_pack(flat)
 
 
+def build_comb_table_host(gens: list) -> torch.Tensor:
+    """The same table by integer arithmetic on the host, for a CPU device:
+    there the batched levels above run through the plain field multiply and
+    take ten times as long."""
+    entries = []
+    for p in gens:
+        for w in range(N_WIN):
+            base = scalar_mul_host(p, 1 << (FIXED_BASE_WINDOW * w))
+            acc = ref.EdPoint.identity()
+            for _ in range(N_DIGITS):
+                entries.append(acc)
+                acc = acc + base
+    # Montgomery's trick: every 1 / Z from one inversion
+    prefix, run = [], 1
+    for q in entries:
+        prefix.append(run)
+        run = run * q.Z % ref.P
+    inv = pow(run, ref.P - 2, ref.P)
+    raw = bytearray(64 * len(entries))
+    for i in range(len(entries) - 1, -1, -1):
+        q = entries[i]
+        zinv = inv * prefix[i] % ref.P
+        inv = inv * q.Z % ref.P
+        raw[64 * i : 64 * i + 32] = (q.X * zinv % ref.P).to_bytes(32, "little")
+        raw[64 * i + 32 : 64 * i + 64] = (q.Y * zinv % ref.P).to_bytes(32, "little")
+    words = np.frombuffer(bytes(raw), dtype="<u4").view(np.int32).reshape(-1, 16)
+    return torch.from_numpy(words.copy())
+
+
+def _table_builder(device):
+    if torch.device(device).type == "cpu":
+        return build_comb_table_host
+    return lambda gens: build_comb_table(gens, device)
+
+
 def _packed_table(n_gens: int, label: bytes, with_blind: bool, device) -> torch.Tensor:
     """The packed comb table from its file under the build directory, or
     built and saved there.  The table with H is the table without it plus
@@ -75,10 +114,10 @@ def _packed_table(n_gens: int, label: bytes, with_blind: bool, device) -> torch.
         return torch.load(path).to(device)
     gens, h = gen_points_host(n_gens, label)
     if with_blind:
-        packed = torch.cat([_packed_table(n_gens, label, False, device),
-                            build_comb_table([h], device)])
+        packed = torch.cat([fixed_base_tables(n_gens, label, False, device)["p"],
+                            _table_builder(device)([h])])
     else:
-        packed = build_comb_table(list(gens), device)
+        packed = _table_builder(device)(list(gens))
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save(packed.cpu(), tmp)
@@ -94,6 +133,13 @@ def fixed_base_tables(n_gens: int, label: bytes, with_blind: bool = False,
     the flag, so a table with H is never served from one without."""
     key = (n_gens, label, bool(with_blind), str(device))
     tbl = _TABLES.get(key)
+    if tbl is None and not with_blind:
+        # generator j's entries come before generator j + 1's: a wider table
+        # of the same label holds this one as a prefix (a view, no copy)
+        for (n, lbl, blind, dev_name), wider in _TABLES.items():
+            if n > n_gens and (lbl, blind, dev_name) == (label, False, str(device)):
+                tbl = _TABLES[key] = {"p": wider["p"][: n_gens * N_WIN * N_DIGITS]}
+                break
     if tbl is None:
         tbl = _TABLES[key] = {"p": _packed_table(n_gens, label, bool(with_blind), device)}
     return tbl

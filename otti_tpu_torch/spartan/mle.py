@@ -23,3 +23,8 @@ def eq_table(r_limbs: torch.Tensor) -> torch.Tensor:
         # new index = old index * 2 + x_j: interleave lo / hi
         tbl = torch.stack([lo, hi], dim=1).reshape(-1, lo.shape[-1])
     return tbl
+
+
+def evaluate(poly: torch.Tensor, r_limbs: torch.Tensor) -> torch.Tensor:
+    """Evaluate a [2^mu, 22] MLE at the point r ([mu, 22]) -> [22]."""
+    return F.dot(SCALAR, eq_table(r_limbs), poly, axis=0)

@@ -93,9 +93,17 @@ def _hyrax_dims(num_vars_padded: int):
     return mu - mu_cols, mu_cols
 
 
-def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list) -> NIZKProof:
+def _row_combine(W: torch.Tensor, r_rows: list) -> torch.Tensor:
+    """u[c] = sum_r eq(r_rows)[r] * W[r, c] for a Hyrax matrix [rows, cols, 22]
+    (no row variable: the one row itself)."""
+    eq_L = mle.eq_table(_vec(r_rows, W.device))
+    return F.sum_reduce(SCALAR, F.mul(SCALAR, eq_L[:, None, :], W), axis=0)
+
+
+def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list,
+          proto: bytes = PROTO) -> NIZKProof:
     device = dev.device
-    t = Transcript(PROTO)
+    t = Transcript(proto)
     t.append_message(b"R1CS", dev.digest)
     t.append_u64(b"num_inputs", len(inputs_ints))
     for x in inputs_ints:
@@ -143,9 +151,7 @@ def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list) -> NIZKProof
     # rows and the bullet argument on the row combination u = L^T W.
     with metrics.timed("opening"):
         r_w = ry[1:]
-        eq_L = mle.eq_table(_vec(r_w[:mu_rows], device))
-        u = F.sum_reduce(SCALAR, F.mul(SCALAR, eq_L[:, None, :], W), axis=0)
-        u_ints = F.to_ints(SCALAR, u)
+        u_ints = F.to_ints(SCALAR, _row_combine(W, r_w[:mu_rows]))
         claim_w = _mle_eval_host(vars_padded, r_w)
         t.append_scalar(b"claim_w", _sb(claim_w))
         proof_bullet = _prove_opening(t, mu_rows, mu_cols, r_w, u_ints)

@@ -12,7 +12,7 @@ import dataclasses
 import json
 from typing import Any
 
-from . import bullet, nizk, sigma, zknizk, zksumcheck
+from . import bullet, nizk, sigma, snark, spark, zknizk, zksumcheck
 
 _CLASSES = {
     cls.__name__: cls
@@ -26,6 +26,9 @@ _CLASSES = {
         sigma.DualBaseEqualityProof,
         sigma.ProductProof,
         sigma.DotProductProof,
+        snark.SNARKProof,
+        spark.SparkEvalProof,
+        spark.SparkSideProof,
     )
 }
 

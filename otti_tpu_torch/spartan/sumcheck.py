@@ -1,15 +1,21 @@
-"""Sumcheck prover/verifier, Spartan phases 1 and 2 (port of
-otti_tpu/spartan/sumcheck.py: lagrange_eval, prove_cubic, prove_quad,
-verify_rounds).
+"""Sumcheck prover/verifier, Spartan phases 1 and 2 and the SPARK layer's
+custom combinations (port of otti_tpu/spartan/sumcheck.py: lagrange_eval,
+prove_cubic, prove_quad, verify_rounds, register_comb, prove_custom,
+verify_custom).
 
-Each round is one call of the fused round kernel (spartan/sumcheck_kernels.py)
-that binds the previous challenge into the tables IN PLACE and evaluates
-the next round polynomial, plus one device->host fetch of its 3 (or 2)
-evaluations for the host Merlin transcript.  The wire format and the
-transcript schedule are the JAX package's, so proofs are byte-identical.
+A round of phase 1 or 2 is one call of the fused round kernel
+(spartan/sumcheck_kernels.py) that binds the previous challenge into the
+tables IN PLACE and evaluates the next round polynomial, plus one
+device->host fetch of its 3 (or 2) evaluations for the host Merlin
+transcript.  A round with a registered combination is torch ops around the
+field multiply kernel, over all tables and all evaluation points at once,
+with the same one fetch.  The wire format and the transcript schedule are
+the JAX package's, so proofs are byte-identical.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..field.fields import SCALAR
 from ..transcript.merlin import Transcript
@@ -75,6 +81,75 @@ def prove_quad(claim: int, pm, pz, transcript: Transcript, label: bytes):
     return _prove(claim, [pm, pz], 2, transcript, label)
 
 
+# ---------------------------------------------------------------------------
+# Custom-combination sumcheck (the SPARK layer): the round combination is
+# looked up in a registry by key, as in the JAX package.
+# ---------------------------------------------------------------------------
+
+_COMB_REGISTRY: dict = {}
+
+
+def register_comb(key: str, fn) -> None:
+    """fn(consts: tuple of [22] limb vectors, exts: tuple of [..., 22]
+    tensors, one per table) -> [..., 22] combined values per point (of
+    degree <= the sumcheck's ``degree`` in each variable)."""
+    _COMB_REGISTRY[key] = fn
+
+
+def _eval_points(degree: int) -> tuple:
+    return (0,) + tuple(range(2, degree + 1))
+
+
+def _custom_evals(stacked: torch.Tensor, half: int, consts: tuple, comb, degree: int):
+    """The round polynomial of sum comb(tables) over the pairs (t[i],
+    t[i + half]), i < half, at the points 0, 2, ..., degree -> canonical
+    [degree, 22].  ``stacked`` is [k, n, 22]; the extensions at every point
+    go through ``comb`` in one call ([points, half, 22] per table)."""
+    lo, cur = stacked[:, :half], stacked[:, half : 2 * half]  # the tables at X = 0, 1
+    d = F.sub(SCALAR, cur, lo)
+    exts = [lo]
+    for _ in range(2, degree + 1):
+        cur = F.add(SCALAR, cur, d)
+        exts.append(cur)
+    per_table = torch.stack(exts, dim=1)  # [k, points, half, 22]
+    vals = comb(consts, tuple(per_table.unbind(0)))
+    return F.canon(SCALAR, F.sum_reduce(SCALAR, vals, axis=1))
+
+
+def prove_custom(claim: int, tables: tuple, consts: tuple, key: str, degree: int,
+                 transcript: Transcript, label: bytes):
+    """Host-driven sumcheck of sum_x comb(consts, tables(x)) with a
+    registered round combination.  The tables ([n, 22] each) are left as
+    they are: the rounds bind a stacked copy in place, which never grows.
+    Wire format as the standard rounds (values at 0..degree, p(1) implied);
+    returns (rounds, r_points, final table values, final claim)."""
+    comb = _COMB_REGISTRY[key]
+    stacked = torch.stack(list(tables))  # [k, n, 22], the rounds' working copy
+    n = stacked.shape[1]
+    e = claim % MOD
+    rounds, rs = [], []
+    active = n
+    while active > 1:
+        half = active // 2
+        # the round's one device->host fetch
+        ev = F.to_ints(SCALAR, _custom_evals(stacked, half, consts, comb, degree))
+        e0 = ev[0]
+        evals = [e0, (e - e0) % MOD] + ev[1:]
+        transcript.append_scalar(label + b"/e0", _scalar_bytes(e0))
+        for j, v in enumerate(ev[1:]):
+            transcript.append_scalar(label + b"/e%d" % (j + 2), _scalar_bytes(v))
+        r = transcript.challenge_scalar(label + b"/r")
+        rounds.append(evals)
+        rs.append(r)
+        e = lagrange_eval(evals, r)
+        lo, hi = stacked[:, :half], stacked[:, half:active]
+        r_limbs = F.from_int(SCALAR, r, stacked.device)
+        stacked[:, :half] = F.add(SCALAR, lo, F.mul(SCALAR, F.sub(SCALAR, hi, lo), r_limbs))
+        active = half
+    finals = tuple(F.to_ints(SCALAR, stacked[:, 0]))
+    return rounds, rs, finals, e
+
+
 def verify_rounds(claim: int, round_polys: list, degree: int, transcript: Transcript,
                   label: bytes):
     """Replay the Fiat-Shamir schedule; returns (final_claim, r_points) or
@@ -94,3 +169,10 @@ def verify_rounds(claim: int, round_polys: list, degree: int, transcript: Transc
         rs.append(r)
         e = lagrange_eval(evals, r)
     return e, rs
+
+
+def verify_custom(claim: int, round_polys: list, degree: int, transcript: Transcript,
+                  label: bytes):
+    """Replay of a custom-combination sumcheck: the schedule of the standard
+    rounds.  Returns (final_claim, r_points) or raises ValueError."""
+    return verify_rounds(claim, round_polys, degree, transcript, label)

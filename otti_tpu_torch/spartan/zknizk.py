@@ -47,6 +47,7 @@ from .nizk import (
     _eq_weights,
     _hyrax_dims,
     _mle_eval_host,
+    _row_combine,
     _sb,
     _vec,
 )
@@ -205,10 +206,7 @@ def prove(
     # ---- Hyrax opening (ZK, log-sized) + final relation -------------------
     with metrics.timed("opening"):
         r_w = ry[1:]
-        eq_L = (mle.eq_table(_vec(r_w[:mu_rows], device)) if mu_rows
-                else F.ones(SCALAR, (1,), device))
-        u = F.sum_reduce(SCALAR, F.mul(SCALAR, eq_L[:, None, :], W), axis=0)
-        u_ints = F.to_ints(SCALAR, u)
+        u_ints = F.to_ints(SCALAR, _row_combine(W, r_w[:mu_rows]))
         L_weights = _eq_weights(r_w[:mu_rows])
         b_u = sum(li * bi for li, bi in zip(L_weights, row_blinds)) % L
         w_eval = _mle_eval_host(vars_padded, r_w)

@@ -25,6 +25,8 @@ from otti_tpu_torch.msm import pippenger as TP
 from otti_tpu_torch.spartan import commitments as TC
 from otti_tpu_torch.spartan import r1cs as TR
 
+torch.set_num_threads(1)  # test workers run side by side on shared cores: one thread each
+
 M = SCALAR.modulus
 LABEL = b"port-test gens"
 

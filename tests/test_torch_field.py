@@ -27,6 +27,8 @@ from otti_tpu_torch.field import fields as PF
 from otti_tpu_torch.field import kernels as K
 from otti_tpu_torch.field import ops as F
 
+torch.set_num_threads(1)  # test workers run side by side on shared cores: one thread each
+
 SPECS = [SCALAR, BASE]
 
 

@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from otti_tpu import native as j_native
 from otti_tpu.field import fields as j_fields
@@ -35,6 +36,8 @@ from otti_tpu_torch.spartan import sigma as t_sigma
 from otti_tpu_torch.spartan import wire as t_wire
 from otti_tpu_torch.transcript import keccak as t_keccak
 from otti_tpu_torch.transcript import merlin as t_merlin
+
+torch.set_num_threads(1)  # test workers run side by side on shared cores: one thread each
 
 
 def _same(a, b) -> bool:
@@ -333,3 +336,226 @@ def test_sigma_proofs_equal_and_cross_verify(kind):
                       else type(z)([(z[0] + 1) % t_ref.L] + list(z[1:]))})
     assert not _sigma_verify(kind, bad, ea, t_sigma, t_ped, t_merlin)
     assert not _sigma_verify(kind, bad, ea, j_sigma, j_ped, j_merlin)
+
+
+# ---- LP, SDP and zkinterface host modules ---------------------------------
+
+import chip_smoke  # noqa: E402  (its instance writers; it imports nothing of either package)
+from otti_tpu.codegen import lp_cert as j_lp_cert  # noqa: E402
+from otti_tpu.codegen import sdp_cert as j_sdp_cert  # noqa: E402
+from otti_tpu.io import mps as j_mps  # noqa: E402
+from otti_tpu.io import sdpa as j_sdpa  # noqa: E402
+from otti_tpu.io import zkif as j_zkif  # noqa: E402
+from otti_tpu.oracle import lp_oracle as j_lp_oracle  # noqa: E402
+from otti_tpu.oracle import sdp_infeas as j_sdp_infeas  # noqa: E402
+from otti_tpu.oracle import sdp_oracle as j_sdp_oracle  # noqa: E402
+from otti_tpu_torch.codegen import lp_cert as t_lp_cert  # noqa: E402
+from otti_tpu_torch.codegen import sdp_cert as t_sdp_cert  # noqa: E402
+from otti_tpu_torch.io import mps as t_mps  # noqa: E402
+from otti_tpu_torch.io import sdpa as t_sdpa  # noqa: E402
+from otti_tpu_torch.io import zkif as t_zkif  # noqa: E402
+from otti_tpu_torch.oracle import lp_oracle as t_lp_oracle  # noqa: E402
+from otti_tpu_torch.oracle import sdp_infeas as t_sdp_infeas  # noqa: E402
+from otti_tpu_torch.oracle import sdp_oracle as t_sdp_oracle  # noqa: E402
+from otti_tpu_torch.spartan import r1cs as t_r1cs  # noqa: E402
+
+LP_SDP_COPIES = {
+    "io/mps.py": t_mps, "oracle/lp_oracle.py": t_lp_oracle, "codegen/lp_cert.py": t_lp_cert,
+    "io/sdpa.py": t_sdpa, "oracle/sdp_oracle.py": t_sdp_oracle,
+    "oracle/sdp_infeas.py": t_sdp_infeas, "codegen/sdp_cert.py": t_sdp_cert,
+    "io/zkif.py": t_zkif,
+}
+
+# three rows, three columns, no BOUNDS section
+TINY_MPS = """NAME TINY3
+ROWS
+ N  COST
+ L  R1
+ L  R2
+ G  R3
+COLUMNS
+    X1 COST -3.0 R1 1.0
+    X1 R2 2.0
+    X2 COST -2.0 R1 1.0
+    X2 R3 1.0
+    X3 COST -4.0 R1 1.0
+    X3 R2 1.0 R3 1.0
+RHS
+    RHS R1 10.0 R2 8.0
+    RHS R3 2.0
+ENDATA
+"""
+
+# the RANGES text of tests/test_io_parsers.py::test_mps_ranges, with one bound
+RANGES_MPS = """NAME RNGTEST
+ROWS
+ N  COST
+ L  R1
+ G  R2
+ E  R3
+ E  R4
+COLUMNS
+    X1 COST 1.0 R1 1.0
+    X1 R2 1.0 R3 1.0
+    X1 R4 1.0
+RHS
+    RHS R1 10.0 R2 2.0
+    RHS R3 5.0 R4 7.0
+RANGES
+    RNG R1 4.0 R2 3.0
+    RNG R3 2.0 R4 -3.0
+BOUNDS
+ UP BND X1 40.0
+ENDATA
+"""
+
+
+@pytest.mark.parametrize("path", sorted(LP_SDP_COPIES))
+def test_lp_sdp_zkif_module_is_a_marked_copy(path):
+    """The copy is its original under one marking line; its imports are
+    relative, so the same text reaches the port's own modules."""
+    with open(os.path.join(REPO, "otti_tpu", path)) as f:
+        original = f.read()
+    with open(os.path.join(REPO, "otti_tpu_torch", path)) as f:
+        marker, copy = f.readline(), f.read()
+    assert marker == f"# copied from otti_tpu/{path}\n"
+    assert copy == original
+    for value in vars(LP_SDP_COPIES[path]).values():
+        owner = getattr(value, "__module__", None) or ""
+        assert not owner.startswith("otti_tpu."), (path, value)
+
+
+def _same_fields(a, b) -> bool:
+    fa, fb = dataclasses.asdict(a), dataclasses.asdict(b)
+    return sorted(fa) == sorted(fb) and all(_same(np.asarray(fa[k]), np.asarray(fb[k]))
+                                            if isinstance(fb[k], (np.ndarray, list))
+                                            and k not in ("var_names", "row_names", "row_senses")
+                                            else fa[k] == fb[k] for k in fb)
+
+
+@pytest.mark.parametrize("text", [TINY_MPS, RANGES_MPS], ids=["tiny", "ranges"])
+def test_parse_mps_equal(tmp_path, text):
+    path = tmp_path / "p.mps"
+    path.write_text(text)
+    a, b = t_mps.parse_mps(str(path)), j_mps.parse_mps(str(path))
+    assert _same_fields(a, b)
+    assert t_mps.scipy_bounds(a) == j_mps.scipy_bounds(b)
+    assert t_mps.sign_constraints(a) == j_mps.sign_constraints(b)
+    if text is RANGES_MPS:
+        rows = dict(zip(a.row_names, zip(a.row_senses, a.rhs)))
+        assert rows["R1"] == ("L", 10.0) and rows["R1__rng"] == ("G", 6.0)
+        assert rows["R4"] == ("G", 4.0) and rows["R4__rng"] == ("L", 7.0)
+        assert t_mps.scipy_bounds(a) == [(0.0, 40.0)]
+
+
+@pytest.fixture(scope="module")
+def tiny_lp(tmp_path_factory):
+    path = tmp_path_factory.mktemp("lp") / "tiny.mps"
+    path.write_text(TINY_MPS)
+    return t_mps.parse_mps(str(path)), j_mps.parse_mps(str(path))
+
+
+def test_lp_oracle_and_certificate_equal(tiny_lp):
+    pa, pb = tiny_lp
+    (xa, ya, oa), (xb, yb, ob) = t_lp_oracle.solve(pa), j_lp_oracle.solve(pb)
+    assert _same(xa, xb) and _same(ya, yb) and oa == ob == -36.0
+    (sa, va, ia), (sb, vb, ib) = t_lp_cert.build(pa, xa, ya), j_lp_cert.build(pb, xb, yb)
+    assert sa.digest() == sb.digest() and (va, ia) == (vb, ib)
+    assert (sa.num_cons, sa.num_vars, sa.num_inputs) == (sb.num_cons, sb.num_vars, sb.num_inputs)
+    assert isinstance(sa, t_r1cs.R1CSShape) and sa.is_satisfied(va, ia)
+    # delta is a parameter of the statement: another circuit
+    sd, vd, _ = t_lp_cert.build(pa, xa, ya, delta=0.5)
+    sj, vj, _ = j_lp_cert.build(pb, xb, yb, delta=0.5)
+    assert sd.digest() == sj.digest() != sa.digest() and vd == vj
+    assert t_lp_cert.pick_frac_bits(pa) == j_lp_cert.pick_frac_bits(pb)
+
+
+def test_generated_lp_is_solved_and_certified(tmp_path):
+    """The seeded LP writer of chip_smoke.py: feasible, bounded, no gap."""
+    path = str(tmp_path / "gen.mps")
+    chip_smoke.write_lp_mps(path, 5, 6, seed=2)
+    pa, pb = t_mps.parse_mps(path), j_mps.parse_mps(path)
+    assert _same_fields(pa, pb) and pa.A.shape == (5, 6) and not pa.bounds
+    assert (pa.A != 0).any(axis=0).all() and (pa.A != 0).any(axis=1).all()
+    xa, ya, oa = t_lp_oracle.solve(pa)
+    xb, yb, ob = j_lp_oracle.solve(pb)
+    assert _same(xa, xb) and _same(ya, yb) and oa == ob < 0
+    assert t_lp_cert.build(pa, xa, ya)[0].digest() == j_lp_cert.build(pb, xb, yb)[0].digest()
+
+
+def test_lp_oracle_refuses_a_gap_from_an_active_bound(tmp_path):
+    """The row-only certificate has no dual for an active upper bound."""
+    path = tmp_path / "b.mps"
+    path.write_text(TINY_MPS.replace("ENDATA", "BOUNDS\n UP BND X3 1.0\nENDATA"))
+    for mps_mod, oracle in ((t_mps, t_lp_oracle), (j_mps, j_lp_oracle)):
+        with pytest.raises(RuntimeError, match="duality gap"):
+            oracle.solve(mps_mod.parse_mps(str(path)))
+
+
+@pytest.fixture(scope="module")
+def small_sdp(tmp_path_factory):
+    """sdpa.random_problem(2, 2, seed=1), also through a .dat-s file."""
+    (pa, Xa), (pb, Xb) = t_sdpa.random_problem(2, 2, seed=1), j_sdpa.random_problem(2, 2, seed=1)
+    assert _same(Xa, Xb)
+    path = str(tmp_path_factory.mktemp("sdp") / "r22.dat-s")
+    chip_smoke.write_sdp_dats(path, pa)
+    return pa, pb, path
+
+
+def test_sdpa_problem_and_parser_equal(small_sdp):
+    pa, pb, path = small_sdp
+    qa, qb = t_sdpa.parse_dats(path), j_sdpa.parse_dats(path)
+    for x, y in ((pa, pb), (qa, qb), (dataclasses.replace(qa, name="random"), pa)):
+        assert (x.name, x.n, x.m) == (y.name, y.n, y.m)
+        assert _same(x.C, y.C) and _same(x.b, y.b)
+        assert all(_same(u, v) for u, v in zip(x.A, y.A))
+    assert qa.name == "r22.dat-s"
+
+
+def test_sdp_oracle_and_certificate_equal(small_sdp):
+    pa, pb, _ = small_sdp
+    (Xa, ya, Sa), (Xb, yb, Sb) = t_sdp_oracle.solve(pa), j_sdp_oracle.solve(pb)
+    assert _same(Xa, Xb) and _same(ya, yb) and _same(Sa, Sb)
+    La, Lb = t_sdp_oracle.cholesky_witness(Xa), j_sdp_oracle.cholesky_witness(Xb)
+    Ma, Mb = t_sdp_oracle.cholesky_witness(Sa), j_sdp_oracle.cholesky_witness(Sb)
+    assert _same(La, Lb) and _same(Ma, Mb)
+    sa, va, ia = t_sdp_cert.build(pa, Xa, ya, La, Ma)
+    sb, vb, ib = j_sdp_cert.build(pb, Xb, yb, Lb, Mb)
+    assert sa.digest() == sb.digest() and (va, ia) == (vb, ib)
+    assert sa.num_cons == sb.num_cons == 2110 and sa.is_satisfied(va, ia)
+    se, ve, _ = t_sdp_cert.build(pa, Xa, ya, La, Ma, epsilon=0.5)
+    sj, vj, _ = j_sdp_cert.build(pb, Xb, yb, Lb, Mb, epsilon=0.5)
+    assert se.digest() == sj.digest() != sa.digest() and ve == vj
+
+
+def test_sdp_infeasibility_arithmetic_equal(small_sdp):
+    pa, pb, _ = small_sdp
+    psd = [[2, 1], [1, 2]]
+    indefinite = [[1, 2], [2, 1]]
+    for mod in (t_sdp_infeas, j_sdp_infeas):
+        assert mod.is_psd_exact(mod._frac_mat(np.asarray(psd, float)))
+        assert not mod.is_psd_exact(mod._frac_mat(np.asarray(indefinite, float)))
+    X = t_sdp_infeas._frac_mat(np.eye(2))
+    assert t_sdp_infeas.check_certificate(pa, X) == j_sdp_infeas.check_certificate(pb, X)
+    assert t_sdp_infeas._frob(X, X) == j_sdp_infeas._frob(X, X) == 2
+
+
+def test_zkif_export_bytes_equal_and_import_round_trip(tmp_path, tiny_lp):
+    pa, pb = tiny_lp
+    xa, ya, _ = t_lp_oracle.solve(pa)
+    sa, va, ia = t_lp_cert.build(pa, xa, ya)
+    sb, vb, ib = j_lp_cert.build(pb, xa, ya)
+    t_zkif.export_r1cs(sa, va, ia, str(tmp_path / "t"))
+    j_zkif.export_r1cs(sb, vb, ib, str(tmp_path / "j"))
+    for ext in (".zkif", ".inp.zkif", ".wit.zkif"):
+        with open(tmp_path / ("t" + ext), "rb") as f, open(tmp_path / ("j" + ext), "rb") as g:
+            data = f.read()
+            assert data == g.read() and data
+    for files in ((".zkif", ".wit.zkif", None), (".zkif", ".wit.zkif", ".inp.zkif")):
+        circuit, wit, inp = (str(tmp_path / ("j" + e)) if e else None for e in files)
+        s2, v2, i2 = t_zkif.import_r1cs(circuit, wit, inp)
+        s3, v3, i3 = j_zkif.import_r1cs(circuit, wit, inp)
+        assert isinstance(s2, t_r1cs.R1CSShape)
+        assert s2.digest() == s3.digest() == sa.digest()
+        assert (v2, i2) == (v3, i3) == (va, ia)
+        assert s2.is_satisfied(v2, i2)

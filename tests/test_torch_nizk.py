@@ -13,6 +13,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import __graft_entry__ as graft
 from otti_tpu.codegen import sgd_cert as j_sgd_cert
@@ -24,6 +25,8 @@ from otti_tpu_torch.codegen import sgd_cert as t_sgd_cert
 from otti_tpu_torch.spartan import nizk as TN
 from otti_tpu_torch.spartan import r1cs as TR
 from otti_tpu_torch.spartan import serial as TS
+
+torch.set_num_threads(1)  # test workers run side by side on shared cores: one thread each
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -62,7 +65,7 @@ def proved():
         dev_j = shape_j.to_device()
         dev_t = shape_t.to_device("cpu")
         out[name] = dict(
-            dev_j=dev_j, dev_t=dev_t, inputs=inputs,
+            dev_j=dev_j, dev_t=dev_t, inputs=inputs, vars=vars_,
             jax=JN.prove(dev_j, vars_, inputs), port=TN.prove(dev_t, vars_, inputs),
         )
     return out
@@ -104,6 +107,21 @@ def test_changed_public_input_or_claim_is_rejected(proved):
     forged = TS.loads(TS.dumps(p["port"]))
     forged.claim_w = (forged.claim_w + 1) % TN.MOD
     assert not TN.verify(p["dev_t"], p["inputs"], forged)
+
+
+def test_proto_changes_the_proof_and_the_default_does_not(proved):
+    """``prove(..., proto)`` as in the JAX package: the default is the NIZK's
+    own label, another label gives another proof, equal to the JAX package's
+    under that label, that the NIZK's verifier does not accept."""
+    p = proved["sgd8x3"]
+    assert TS.dumps(TN.prove(p["dev_t"], p["vars"], p["inputs"], proto=TN.PROTO)) \
+        == TS.dumps(p["port"])
+    other = TN.prove(p["dev_t"], p["vars"], p["inputs"], proto=b"another protocol")
+    assert TS.dumps(other) != TS.dumps(p["port"])
+    assert other.comm_vars == p["port"].comm_vars  # the witness commitment is not the label's
+    assert not TN.verify(p["dev_t"], p["inputs"], other)
+    assert TS.dumps(other) == JS.dumps(
+        JN.prove(p["dev_j"], p["vars"], p["inputs"], proto=b"another protocol"))
 
 
 def test_port_runs_without_jax():

@@ -22,6 +22,8 @@ from otti_tpu_torch.field import ops as F
 from otti_tpu_torch.spartan import sumcheck as TS
 from otti_tpu_torch.spartan import sumcheck_kernels as SK
 
+torch.set_num_threads(1)  # test workers run side by side on shared cores: one thread each
+
 M = SCALAR.modulus
 N = 1 << 10  # one size: the JAX kernels compile once per table size
 

@@ -47,6 +47,8 @@ from otti_tpu_torch.spartan import zksumcheck as TZS
 from otti_tpu_torch.spartan.wire import PROFILES as T_PROFILES
 from otti_tpu_torch.transcript.merlin import Transcript as TTranscript
 
+torch.set_num_threads(1)  # test workers run side by side on shared cores: one thread each
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M = SCALAR.modulus
 SEED = bytes(range(32))
@@ -371,9 +373,9 @@ def test_cli_resume_skips_a_verified_instance(tiny_config, capsys):
 
 @pytest.mark.parametrize("flags,needle", [
     (["--zk", "--transparent"], "mutually exclusive"),
-    (["--lp"], "ROADMAP.md item 1.9"),
-    (["--sdp"], "ROADMAP.md item 1.9"),
-    (["--snark"], "ROADMAP.md item 1.10"),
+    (["--lp"], "--config is for --sgd"),
+    (["--sdp"], "--config is for --sgd"),
+    (["--snark", "--zk"], "--zk and --snark are mutually exclusive"),
     (["--mesh", "4"], "ROADMAP.md item 1.12"),
     (["--batch"], "ROADMAP.md item 1.13"),
     (["--wire", "other"], "invalid choice"),
@@ -387,11 +389,23 @@ def test_cli_refusals(tiny_config, capsys, flags, needle):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("flag", ["snark", "mesh", "batch"])
+@pytest.mark.parametrize("flag", ["mesh", "batch"])
 def test_run_sgd_refuses_unported_modes(tiny_config, flag):
     cfg, out = tiny_config
     with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
         cli.run_sgd(cfg, str(out), device="cpu", **{flag: 4 if flag == "mesh" else True})
+
+
+def test_cli_snark_mode_on_the_sgd_config(tiny_config, capsys):
+    """--snark opts out of zero knowledge, as --transparent does."""
+    cfg, out = tiny_config
+    rc = cli.main(["--sgd", "--config", cfg, "--device", "cpu", "--snark", "--out", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0
+    assert "Proving tiny8x3 (snark):" in text and "Verification successful for tiny8x3" in text
+    meta = _meta(out)
+    assert meta["mode"] == "snark" and meta["verified"] and "snark_setup" in meta["timings"]
+    assert type(TS.load(str(out / "SGD" / "tiny8x3.proof.json"))).__name__ == "SNARKProof"
 
 
 @pytest.mark.cuda
