@@ -16,11 +16,12 @@ Phases (each prints a line; any failure exits non-zero):
               2^11, 2^13, 2^14, 2^15}; the same bits on three runs of one input
   5. main     otti_tpu_torch.cli.run_sgd on optdigits 3v8 and iris 0v1 (real
               data in datasets/pmlb_cache), cold then warm: first transparent
-              (zk=False), then in zero knowledge (the CLI's default); both
-              kernels launched in each, the saved iris proofs reloaded and
+              (zk=False), then in zero knowledge (the CLI's default), each by
+              the device-transcript prover the CLI picks; every kernel
+              launched in each, the saved iris proofs reloaded and
               verified, a changed public input rejected; iris once more under
-              the "spartan" wire profile, which verifies under it and not
-              under "otti"
+              the "spartan" wire profile (zknizk.prove), which verifies under
+              it and not under "otti"
   6. cpu_gpu  the same 1,024-constraint R1CS proved on the card and on the
               CPU gives byte-equal proofs, transparent and (one blind seed)
               zero-knowledge; two blind seeds give two proofs
@@ -40,12 +41,26 @@ Phases (each prints a line; any failure exits non-zero):
               memory; both kernels launched; a 256-constraint R1CS proved on
               the card and on the CPU, the two proofs byte-equal; two
               tampered proofs rejected
- 10. profile  a warm optdigits prove, transparent, zero-knowledge, then in
-              SNARK mode: the multiply kernel's launch sizes by field,
-              kernel == plain at each, its time at the most frequent ones,
-              both kernels' launches per prove; then torch.profiler over
-              another: the device's busy share of the wall time and the top
-              kernels
+ 10. device_fs the device transcript: K3 (Keccak-f[1600]) == plain over a
+              chain of 64 permutations and on 4,096 states, K4 (ristretto
+              encoding) == plain == the host library at 1, 4 and 4,096
+              points, kernel 2 with its challenge in device memory == with
+              it as an int (2^15 rows, both degrees), each timed against its
+              plain version and its bound; then optdigits 3v8 (hybrid),
+              iris 0v1 (fused) and the LP 117 x 225 (hybrid) proved in zero
+              knowledge by the prover the CLI picks, byte-equal to
+              zknizk.prove for one blind seed, cold and warm against it;
+              fused and hybrid plain == nizk; a tampered proof rejected; no
+              host sync between the two transfers (OTTI_SYNC_CHECK=1); the
+              launches of a warm prove; run_sgd under OTTI_CLASSIC=1 (phase
+              main drives the default), run_lp by default, all four kernels
+              launched
+ 11. profile  a warm optdigits prove, transparent, zero-knowledge (host
+              transcript, then hybrid.prove_zk), then in SNARK mode: the
+              multiply kernel's launch sizes by field, kernel == plain at
+              each, its time at the most frequent ones, every kernel's
+              launches per prove; then torch.profiler over another: the
+              device's busy share of the wall time and the top kernels
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -73,7 +88,7 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "kernel1", "kernel2", "main", "cpu_gpu", "scale", "lp_sdp", "snark",
-          "profile")
+          "device_fs", "profile")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -400,10 +415,12 @@ def _config(path: str, names=("optdigits", "iris")) -> None:
         json.dump({k: cfg[k] for k in names}, f)
 
 
-def _drive_run_sgd(rec: dict, tag: str, cfg: str, out_dir: str, names, mode: str, **kw) -> dict:
+def _drive_run_sgd(rec: dict, tag: str, cfg: str, out_dir: str, names, mode: str,
+                   kernels=None, **kw) -> dict:
     """cli.run_sgd on ``cfg``, cold then warm, with the launch counts set to 0
-    just before and read just after; every instance must verify and its meta
-    must name ``mode``.  Returns the counts."""
+    just before and read just after (``kernels``: those that must have run);
+    every instance must verify and its meta must name ``mode``.  Returns the
+    counts."""
     from otti_tpu_torch import cli
 
     _zero_launches()
@@ -435,7 +452,7 @@ def _drive_run_sgd(rec: dict, tag: str, cfg: str, out_dir: str, names, mode: str
                 + " prover " + json.dumps({k: round(v, 4) for k, v in pm.items()}))
             rec.setdefault("main", {})[f"{tag}:{name}:{capture}"] = meta
         log(f"[main:{tag}:{capture}] run_sgd wall {wall:.2f}s")
-    return _read_launches(f"main:{tag}")
+    return _read_launches(f"main:{tag}", kernels)
 
 
 def phase_main(rec: dict) -> None:
@@ -454,7 +471,7 @@ def phase_main(rec: dict) -> None:
         cfg_iris = os.path.join(tmp, "iris.json")
         _config(cfg_iris, ("iris",))
         _drive_run_sgd(rec, "zk-spartan", cfg_iris, wire_dir, ("iris",), "zk-wire-spartan",
-                       zk=True, wire="spartan")
+                       kernels=HOST_FS_KERNELS, zk=True, wire="spartan")
 
         # reload what was saved; one public input changed must be rejected
         shape, vars_, inputs, _, _ = cli.lower_sgd("iris", IRIS)
@@ -587,14 +604,19 @@ def _zero_launches() -> None:
         _build.LAUNCHES[k] = 0
 
 
-def _read_launches(tag: str) -> dict:
-    """The counts since _zero_launches; both kernels must have been launched."""
+HOST_FS_KERNELS = ("field_mul", "sumcheck_round")  # the paths with the host transcript
+
+
+def _read_launches(tag: str, kernels=None) -> dict:
+    """The counts since _zero_launches; every kernel of ``kernels`` (all
+    four by default: the device-transcript paths run them all) must have
+    been launched."""
     from otti_tpu_torch import _build
 
     launches = dict(_build.LAUNCHES)
     log(f"[{tag}] kernel launches during this path: {launches}")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in kernels or launches:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the {tag} path")
     return launches
 
@@ -738,7 +760,7 @@ def phase_snark(rec: dict) -> None:
                     f"prove {meta['timings']['prove']:.3f}s verify {meta['timings']['verify']:.3f}s "
                     f"proof {meta['proof_bytes']} B, peak device memory {peak / 2**20:.1f} MiB "
                     "(setup, prove and verify)")
-        rec["launches_snark"] = _read_launches("snark")
+        rec["launches_snark"] = _read_launches("snark", HOST_FS_KERNELS)
         proof = serial.load(os.path.join(tmp, "SGD", "optdigits.proof.json"))
         if type(proof).__name__ != "SNARKProof":
             raise AssertionError(f"saved proof is a {type(proof).__name__}")
@@ -768,6 +790,285 @@ def phase_snark(rec: dict) -> None:
         raise AssertionError("GPU and CPU SNARK proofs (or SPARK commitments) differ")
     log(f"[snark] card and CPU SNARK proofs byte-equal ({len(outs['cuda'][0])} B of JSON); "
         "a tampered evals_abc and a tampered s_R_row rejected")
+
+
+# Keccak-f[1600], 32-bit integer operations a state: 24 rounds of theta (20
+# XORs for the column parities, 5 x (rotation: 3 + XOR) for D, 25 XORs),
+# rho + pi (24 rotations of 3), chi (25 x NOT, AND, XOR) and iota (1), each
+# 64-bit operation two 32-bit ones.
+KECCAK_OPS = 2 * 24 * (20 + 5 * 4 + 25 + 24 * 3 + 25 * 3 + 1)
+# BASE multiplies of one ristretto encoding (csrc/ristretto.cuh): u1, u2,
+# u2^2, u1 u2^2; v^2, v^3, v3^2, v^7; the chain (251 squarings, 11
+# multiplies); v3 * chain, r^2, v r^2, -u i, r i; den1, den2, den1 den2,
+# * T, ix, iy, enchanted, T z_inv, Xr z_inv, s.
+ENCODE_MULS = 4 + 4 + 262 + 5 + 10
+
+
+def ops_bound(n_ops: float, n_bytes: float) -> tuple:
+    """(least ms, what sets it): n_ops 32-bit integer operations at the
+    integer rate against n_bytes at the memory rate."""
+    t_ops = n_ops / INT32_MADS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _dfs_kernels(rec: dict) -> None:
+    """K3, K4 and kernel 2 fed a challenge from device memory, each against
+    its plain version (and K3, K4 against the host library), bit for bit."""
+    from otti_tpu_torch import native
+    from otti_tpu_torch.curve import edwards as E
+    from otti_tpu_torch.curve import ristretto
+    from otti_tpu_torch.field.ops import SCALAR, ints_to_limbs
+    from otti_tpu_torch.msm import pippenger
+    from otti_tpu_torch.spartan import sumcheck_kernels as SK
+    from otti_tpu_torch.spartan.nizk import GENS_LABEL
+    from otti_tpu_torch.transcript import device as D
+
+    rng = np.random.default_rng(9)
+    # ---- K3: a chain of 64 permutations of one state, then 4,096 states
+    st = torch.from_numpy(rng.integers(0, 256, (1, 200), dtype=np.uint8)).cuda()
+    k_st, p_st, host = st.clone(), st.clone(), bytearray(st.cpu().numpy().tobytes())
+    for i in range(64):
+        D.keccak_f1600_cuda(k_st)
+        p_st = D.keccak_f1600_plain(p_st)
+        if i < 4:
+            native.keccak_f1600(host)
+            if bytes(k_st.cpu().numpy().tobytes()) != bytes(host):
+                raise AssertionError(f"K3 differs from the host permutation at step {i}")
+        if not torch.equal(k_st, p_st):
+            raise AssertionError(f"K3 differs from its plain version at step {i} of the chain")
+    big = torch.from_numpy(rng.integers(0, 256, (4096, 200), dtype=np.uint8)).cuda()
+    k_big = D.keccak_f1600_cuda(big.clone())
+    if not torch.equal(k_big, D.keccak_f1600_plain(big)):
+        raise AssertionError("K3 differs from its plain version on 4,096 states")
+    for i in (0, 1, 4095):
+        h = bytearray(big[i].cpu().numpy().tobytes())
+        native.keccak_f1600(h)
+        if bytes(k_big[i].cpu().numpy().tobytes()) != bytes(h):
+            raise AssertionError(f"K3 differs from the host permutation at state {i}")
+    one = st.clone()
+    times = {}
+    for b, x in ((1, one), (4096, big.clone())):
+        t_k = cuda_ms(lambda: D.keccak_f1600_cuda(x), 50, queue_ahead=True)
+        t_w = cuda_ms(lambda: D.keccak_f1600_cuda(x), 50)
+        t_p = cuda_ms(lambda: D.keccak_f1600_plain(x), 3)
+        b_ms, b_by = ops_bound(b * KECCAK_OPS, b * 400)
+        times[b] = (t_k, t_p, t_w, b_ms, b_by)
+        log(f"[device_fs] K3 B={b}: kernel {t_k:.5f} ms (through the wrapper {t_w:.5f} ms), "
+            f"plain {t_p:.4f} ms, bound {b_ms:.6f} ms by {b_by}")
+    rec["keccak"] = {"max_abs_err": 0, "ms": times[1][0], "plain_ms": times[1][1],
+                     "wrapper_ms": times[1][2], "bound_ms": times[1][3], "bound_by": times[1][4],
+                     "b4096": {"ms": times[4096][0], "plain_ms": times[4096][1],
+                               "bound_ms": times[4096][3], "bound_by": times[4096][4]}}
+    log("[device_fs] K3 == plain over a chain of 64 permutations and on 4,096 states; "
+        "== the host library on 7 states")
+
+    # ---- K4: the identity, comb-table points (z = 1) and device sums
+    tbl = pippenger.fixed_base_tables(4, GENS_LABEL, True, "cuda")["p"]
+    gen = torch.Generator().manual_seed(4)
+
+    def points(n):
+        idx = torch.randint(0, tbl.shape[0], (2, n), generator=gen).cuda()
+        a, b = E.from_affine_pack(tbl[idx[0]]), E.from_affine_pack(tbl[idx[1]])
+        s_ab = E.add(a, b)  # general z and t
+        pts = E.tree_map(lambda x, y: torch.cat([x[: n // 2], y[n // 2 :]]), a, s_ab)
+        ident = E.identity((1,), "cuda")
+        return E.tree_map(lambda x, y: torch.cat([y, x[1:]]).contiguous(), pts, ident)
+
+    times = {}
+    for n in (1, 4, 4096):
+        pts = points(n)
+        got, want = ristretto.encode_cuda(pts), ristretto.encode_plain(pts)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 differs from its plain version at n={n}")
+        refs = E.to_refs(E.tree_map(lambda a: a[:64], pts))
+        host = [native.ristretto_encode_host(q) for q in refs]
+        if [bytes(r.tolist()) for r in got[:64].cpu()] != host:
+            raise AssertionError(f"K4 differs from the host library at n={n}")
+        if n == 1 and host[0] != bytes(32):
+            raise AssertionError("the identity does not encode to 32 zero bytes")
+        if n in (4, 4096):
+            t_k = cuda_ms(lambda: ristretto.encode_cuda(pts), 30, queue_ahead=True)
+            t_w = cuda_ms(lambda: ristretto.encode_cuda(pts), 30)
+            t_p = cuda_ms(lambda: ristretto.encode_plain(pts), 2)
+            b_ms, b_by = ops_bound(n * ENCODE_MULS * 2 * WIDE_MULS["base"], n * (4 * ROW_BYTES + 32))
+            times[n] = (t_k, t_p, t_w, b_ms, b_by)
+            log(f"[device_fs] K4 n={n}: kernel {t_k:.5f} ms (through the wrapper {t_w:.5f} ms), "
+                f"plain {t_p:.3f} ms, bound {b_ms:.6f} ms by {b_by}")
+    rec["ristretto"] = {"max_abs_err": 0, "ms": times[4][0], "plain_ms": times[4][1],
+                        "wrapper_ms": times[4][2], "bound_ms": times[4][3],
+                        "bound_by": times[4][4],
+                        "n4096": {"ms": times[4096][0], "plain_ms": times[4096][1],
+                                  "bound_ms": times[4096][3], "bound_by": times[4096][4]}}
+    log("[device_fs] K4 == plain == host library at n = 1, 4, 4,096 (identity, comb points, "
+        "device sums)")
+
+    # ---- kernel 2 with the challenge in device memory == with it as an int
+    M = SCALAR.modulus
+    pyr = random.Random(6)
+    n = 1 << 15
+    for degree in (3, 2):
+        k = 4 if degree == 3 else 2
+        base = [torch.from_numpy(ints_to_limbs([pyr.randrange(M) for _ in range(n)])
+                                 .reshape(n, 22)).cuda() for _ in range(k)]
+        rs = [pyr.randrange(M) for _ in range(n.bit_length())]
+        rs_dev = [torch.from_numpy(ints_to_limbs([r]).reshape(22)).cuda() for r in rs]
+        t_int, t_dev = [t.clone() for t in base], [t.clone() for t in base]
+        ev_i, sn_i = _run_sumcheck(SK.sumcheck_round_cuda, t_int, degree, rs)
+        ev_d, sn_d = _run_sumcheck(SK.sumcheck_round_cuda, t_dev, degree, rs_dev)
+        same = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(ev_i, ev_d))
+        same = same and all(torch.equal(x, y) for sa, sb in zip(sn_i, sn_d) for x, y in zip(sa, sb))
+        if not same:
+            raise AssertionError(f"kernel 2 (degree {degree}): device challenge != int challenge")
+        small = [t[:64].clone() for t in base]
+        small2 = [t.clone() for t in small]
+        ev_p, sn_p = _run_sumcheck(SK.sumcheck_round_plain, small, degree, rs_dev)
+        ev_k, sn_k = _run_sumcheck(SK.sumcheck_round_cuda, small2, degree, rs_dev)
+        if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(ev_p, ev_k)):
+            raise AssertionError(f"kernel 2 (degree {degree}): device challenge, kernel != plain")
+        if degree == 3:
+            tabs = [t.clone() for t in base]
+            t_dev_ms = cuda_ms(lambda: SK.sumcheck_round_cuda(tabs, 3, rs_dev[0], n // 2), 50,
+                               queue_ahead=True)
+            t_int_ms = cuda_ms(lambda: SK.sumcheck_round_cuda(tabs, 3, rs[0], n // 2), 50,
+                               queue_ahead=True)
+            rec["kernel2_device_challenge"] = {"ms": t_dev_ms, "int_ms": t_int_ms}
+            log(f"[device_fs] kernel 2 cubic bind+eval round at 2^15, challenge in device "
+                f"memory {t_dev_ms:.4f} ms, as an int {t_int_ms:.4f} ms")
+    log("[device_fs] kernel 2 with the challenge in device memory == with it as an int, "
+        "cubic and quadratic, 2^15 rows down to the final bind; == plain at 64 rows")
+
+
+def _dfs_instances(tmp: str) -> dict:
+    """optdigits 3v8 (2^13: hybrid), iris 0v1 (2^10: fused) and the LP
+    117 x 225 written from a seed (2^14: hybrid), lowered."""
+    from otti_tpu_torch import cli
+    from otti_tpu_torch.codegen import lp_cert
+    from otti_tpu_torch.io import mps
+    from otti_tpu_torch.oracle import lp_oracle
+
+    with open(os.path.join(REPO, "datasets", "SGD", "pmlb-real-extra.json")) as f:
+        optdigits = json.load(f)["optdigits"]
+    out = {}
+    for name, params in (("optdigits", optdigits), ("iris", IRIS)):
+        shape, vars_, inputs, _, _ = cli.lower_sgd(name, params)
+        out[name] = (shape, vars_, inputs)
+    path = os.path.join(tmp, "gen117x225.mps")
+    write_lp_mps(path, 117, 225, seed=1)
+    prob = mps.parse_mps(path)
+    x, y, _ = lp_oracle.solve(prob)
+    out["lp117x225"] = lp_cert.build(prob, x, y)
+    return out
+
+
+def _dfs_proofs(rec: dict) -> None:
+    """The device-transcript provers against the host-transcript ones, byte
+    for byte with one blind seed, through the CLI's choice; verification,
+    tampering, the sync check, the launch counts, cold and warm times."""
+    from otti_tpu_torch import _build, cli, metrics
+    from otti_tpu_torch.spartan import fused, hybrid, nizk, serial, zkfused, zknizk
+
+    seed = bytes(range(32))
+    with tempfile.TemporaryDirectory() as tmp:
+        insts = _dfs_instances(tmp)
+        for name, (shape, vars_, inputs) in insts.items():
+            dev = shape.to_device("cuda")
+            prove_zk, verify_zk, classic = cli._provers(shape, True, "otti")
+            want = {"optdigits": hybrid.prove_zk, "iris": zkfused.prove,
+                    "lp117x225": hybrid.prove_zk}[name]
+            if prove_zk is not want or classic:
+                raise AssertionError(f"{name}: the CLI chose {prove_zk.__module__}")
+            times = {}
+            # "first": the first prove of this shape in the process only when the
+            # phase runs alone (phase main proves optdigits and iris before it)
+            for capture in ("first", "again"):
+                for tag, fn in (("device_fs", prove_zk), ("classic", zknizk.prove)):
+                    metrics.reset()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    proof = fn(dev, vars_, inputs, seed=seed)
+                    torch.cuda.synchronize()
+                    t_prove = time.perf_counter() - t0
+                    snap = {k: round(v, 4) for k, v in metrics.snapshot().items()}
+                    t0 = time.perf_counter()
+                    ok = verify_zk(dev, inputs, proof)
+                    t_verify = time.perf_counter() - t0
+                    if not ok:
+                        raise AssertionError(f"{name} {tag} zk proof does not verify")
+                    times[(tag, capture)] = (serial.dumps(proof), t_prove, t_verify)
+                    log(f"[device_fs:{name}] zk {tag} {capture}: prove {t_prove:.4f}s verify "
+                        f"{t_verify:.4f}s, {shape.num_cons} constraints, proof "
+                        f"{proof.size_bytes()} B; prover {json.dumps(snap)}")
+                    rec.setdefault("device_fs", {})[f"{name}:zk:{tag}:{capture}"] = {
+                        "prove_s": t_prove, "verify_s": t_verify, **snap}
+            dfs = {times[("device_fs", c)][0] for c in ("first", "again")}
+            cls = {times[("classic", c)][0] for c in ("first", "again")}
+            if len(dfs) != 1 or dfs != cls:
+                raise AssertionError(f"{name}: device-transcript and classic zk proofs differ")
+            proof = serial.loads(times[("device_fs", "again")][0])
+            bad = dataclasses.replace(proof, bullet=dataclasses.replace(
+                proof.bullet, z1=(proof.bullet.z1 + 1) % zknizk.L))
+            if verify_zk(dev, inputs, bad):
+                raise AssertionError(f"{name}: a zk proof with a tampered bullet.z1 verified")
+            plain = serial.dumps(nizk.prove(dev, vars_, inputs))
+            for tag, fn in (("hybrid", hybrid.prove), ("fused", fused.prove)):
+                p = fn(dev, vars_, inputs)
+                if serial.dumps(p) != plain or not nizk.verify(dev, inputs, p):
+                    raise AssertionError(f"{name}: {tag}.prove differs from nizk.prove")
+            # no host sync between the two transfers (warm: tables and constants
+            # are there), and the launches of that warm zk prove
+            before = dict(_build.LAUNCHES)
+            os.environ["OTTI_SYNC_CHECK"] = "1"
+            try:
+                prove_zk(dev, vars_, inputs, seed=seed)
+                torch.cuda.synchronize()
+                per = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+                cli._provers(shape, False, "otti")[0](dev, vars_, inputs)
+                torch.cuda.synchronize()
+            finally:
+                del os.environ["OTTI_SYNC_CHECK"]
+            rec.setdefault("launches_per_prove", {})[f"zk-device_fs:{name}"] = per
+            log(f"[device_fs:{name}] device-transcript and classic zk proofs byte-equal "
+                f"(seeded), fused and hybrid plain == nizk, tampered bullet.z1 rejected, "
+                f"no host sync between the two transfers (OTTI_SYNC_CHECK, zk and plain); "
+                f"launches of a warm zk prove {per}")
+            if name == "optdigits":  # stage by stage, each waited for (no overlap)
+                os.environ["OTTI_SYNC_METRICS"] = "1"
+                try:
+                    metrics.reset()
+                    prove_zk(dev, vars_, inputs, seed=seed)
+                    log(f"[device_fs:{name}] warm zk prove with OTTI_SYNC_METRICS=1: "
+                        + json.dumps({k: round(v, 4) for k, v in metrics.snapshot().items()}))
+                finally:
+                    del os.environ["OTTI_SYNC_METRICS"]
+
+        # through the CLI under OTTI_CLASSIC=1, cold then warm (phase main drives
+        # the default, the device transcript), then run_lp by default
+        cfg = os.path.join(tmp, "smoke.json")
+        _config(cfg)
+        os.environ["OTTI_CLASSIC"] = "1"
+        try:
+            _drive_run_sgd(rec, "classic", cfg, os.path.join(tmp, "cls"), ("optdigits", "iris"),
+                           "zk-classic", kernels=HOST_FS_KERNELS, zk=True)
+        finally:
+            del os.environ["OTTI_CLASSIC"]
+        lp = os.path.join(tmp, "gen117x225.mps")
+        _zero_launches()
+        for capture in ("cold", "warm"):
+            ok, _ = _captured(f"device_fs:lp:{capture}", cli.run_lp, [lp], os.path.join(tmp, "lp"),
+                              zk=True)
+            if not ok:
+                raise AssertionError(f"LP 117 x 225 ({capture}) did not verify")
+            _check_meta(f"device_fs:lp:{capture}",
+                        os.path.join(tmp, "lp", "LP", "gen117x225.mps.meta.json"), "zk")
+        rec["launches_device_fs"] = _read_launches("device_fs:lp")
+
+
+def phase_device_fs(rec: dict) -> None:
+    """The device transcript: kernels K3 and K4 and kernel 2's device
+    challenge, then the device-transcript provers the CLI picks by default."""
+    _dfs_kernels(rec)
+    _dfs_proofs(rec)
 
 
 def _profile_prove(rec: dict, tag: str, prove, covered: set, host_ops: bool = True) -> None:
@@ -862,7 +1163,8 @@ def _profile_prove(rec: dict, tag: str, prove, covered: set, host_ops: bool = Tr
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile:{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     for e in events:  # the two hand-written kernels, wherever they rank
-        if "field_mul_kernel" in e.key or "sumcheck_round_kernel" in e.key:
+        if any(k in e.key for k in ("field_mul_kernel", "sumcheck_round_kernel", "keccak_kernel",
+                                    "ristretto_encode_kernel")):
             log(f"[profile:{tag}]   own kernel {e.self_device_time_total / 1e3:9.3f} ms  "
                 f"{e.count:6d}x  {e.key[:70]}")
 
@@ -871,7 +1173,7 @@ def phase_profile(rec: dict) -> None:
     """A warm optdigits prove under the recording wrapper and under
     torch.profiler: transparent, zero-knowledge, then in SNARK mode."""
     from otti_tpu_torch import cli, metrics
-    from otti_tpu_torch.spartan import nizk, snark, spark, zknizk
+    from otti_tpu_torch.spartan import hybrid, nizk, snark, spark, zknizk
 
     with open(os.path.join(REPO, "datasets", "SGD", "pmlb-real-extra.json")) as f:
         params = json.load(f)["optdigits"]
@@ -881,9 +1183,10 @@ def phase_profile(rec: dict) -> None:
     comm = spark.commit(dev)
     provers = (("plain", lambda: nizk.prove(dev, vars_, inputs)),
                ("zk", lambda: zknizk.prove(dev, vars_, inputs)),
+               ("zk-hybrid", lambda: hybrid.prove_zk(dev, vars_, inputs)),
                ("snark", lambda: snark.prove(dev, comm, vars_, inputs)))
     for tag, prove in provers:
-        _profile_prove(rec, tag, prove, covered, host_ops=tag != "snark")
+        _profile_prove(rec, tag, prove, covered, host_ops=tag in ("plain", "zk"))
         # host wall without the profiler: three warm proves, stage by stage
         for _ in range(3):
             metrics.reset()
@@ -907,7 +1210,7 @@ def main(argv=None) -> int:
     fns = {"device": phase_device, "build": phase_build, "kernel1": phase_kernel1,
            "kernel2": phase_kernel2, "main": phase_main, "cpu_gpu": phase_cpu_gpu,
            "scale": phase_scale, "lp_sdp": phase_lp_sdp, "snark": phase_snark,
-           "profile": phase_profile}
+           "device_fs": phase_device_fs, "profile": phase_profile}
     for name in phases:
         t0 = time.time()
         fns[name](rec)
@@ -924,6 +1227,10 @@ def main(argv=None) -> int:
          "otti_tpu/field/pallas_kernels.py:116"),
         ("kernel2", "sumcheck_round", "otti_tpu_torch/csrc/sumcheck_round.cu",
          "otti_tpu/spartan/pallas_sumcheck.py:252"),
+        ("keccak", "keccak_f1600", "otti_tpu_torch/csrc/keccak.cu",
+         "otti_tpu/transcript/device.py:92"),
+        ("ristretto", "ristretto_encode", "otti_tpu_torch/csrc/ristretto_encode.cu",
+         "otti_tpu/curve/ristretto.py:61"),
     ):
         if key in rec:
             kernels.append({"name": cname, "route": "cuda", "source": src, "replaces": rep,
@@ -938,6 +1245,13 @@ def main(argv=None) -> int:
                                 rec.get("launches_transparent", {}).get(cname),
                             "launches_lp_sdp": rec.get("launches_lp_sdp", {}).get(cname),
                             "launches_snark": rec.get("launches_snark", {}).get(cname),
+                            "launches_device_fs":
+                                rec.get("launches_device_fs", {}).get(cname),
+                            **{k: v for k, v in rec[key].items()
+                               if k in ("b4096", "n4096", "base", "quad")},
+                            **({"device_challenge": rec["kernel2_device_challenge"]}
+                               if key == "kernel2" and "kernel2_device_challenge" in rec
+                               else {}),
                             "launches_per_prove": {
                                 tag: per.get(cname)
                                 for tag, per in rec.get("launches_per_prove", {}).items()}})

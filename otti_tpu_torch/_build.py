@@ -37,7 +37,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-LAUNCHES = {"field_mul": 0, "sumcheck_round": 0}
+LAUNCHES = {"field_mul": 0, "sumcheck_round": 0, "keccak_f1600": 0, "ristretto_encode": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -55,7 +55,15 @@ _SIGNATURES = {
     },
     "sumcheck_round": {
         "otti_sumcheck_init": [_P],
-        "otti_sumcheck_round": [_P, _P, _P, _P, ctypes.c_int, _P, _LL, _LL, _P, _P, _P],
+        "otti_sumcheck_round": [_P, _P, _P, _P, ctypes.c_int, _P, _P, _LL, _LL, _P, _P, _P],
+    },
+    "keccak": {
+        "otti_keccak_init": [_P],
+        "otti_keccak_f1600": [_P, _LL, _P],
+    },
+    "ristretto_encode": {
+        "otti_ristretto_init": [_P],
+        "otti_ristretto_encode": [_P, _P, _P, _P, _P, _LL, _P],
     },
 }
 
@@ -88,6 +96,32 @@ def field_consts() -> np.ndarray:
         fold = (1 << 256) % spec.modulus if spec.kind == "base" else 0
         rows += _words(spec.modulus, 8) + _words(spec.tail, 4) + _words(fold, 1)
     return np.array(rows, dtype=np.uint32).view(np.int32)
+
+
+def ristretto_consts() -> np.ndarray:
+    """field_consts() followed by the 16 words of csrc/ristretto.cuh's
+    RistrettoConsts: sqrt(-1) and 1 / sqrt(a - d) mod p (refimpl's)."""
+    from .refimpl import numeric as ref
+
+    words = _words(ref.SQRT_M1, 8) + _words(ref.INVSQRT_A_MINUS_D, 8)
+    return np.concatenate([field_consts(), np.array(words, dtype=np.uint32).view(np.int32)])
+
+
+def keccak_consts() -> np.ndarray:
+    """csrc/keccak.cu's KeccakConsts: the 24 round constants (uint64), then
+    the rho/pi gather's 25 sources and 25 rotations (int32), as bytes."""
+    from .transcript.device import PI_ROT, PI_SRC
+    from .transcript.keccak import _RC
+
+    return np.concatenate([
+        np.array(_RC, dtype=np.uint64).view(np.uint8),
+        PI_SRC.astype(np.int32).view(np.uint8), PI_ROT.astype(np.int32).view(np.uint8),
+    ])
+
+
+# source file (without .cu) -> what its init function copies to the device
+_INIT_DATA = {"field_mul": field_consts, "sumcheck_round": field_consts,
+              "keccak": keccak_consts, "ristretto_encode": ristretto_consts}
 
 
 def _build(jobs: list) -> None:
@@ -139,9 +173,9 @@ def library() -> types.SimpleNamespace:
         if jobs:
             _build(jobs)
         fns = types.SimpleNamespace()
-        consts = field_consts()
         for name, sigs in _SIGNATURES.items():
             lib = ctypes.CDLL(paths[name])
+            consts = np.ascontiguousarray(_INIT_DATA[name]())
             for fname, args in sigs.items():
                 fn = getattr(lib, fname)
                 fn.argtypes = args

@@ -1,8 +1,10 @@
-// The device arithmetic of field.cuh compiled for the host, so that a CPU
-// test can hold the very code the kernels run against Python integers:
+// The device arithmetic of field.cuh and ristretto.cuh compiled for the
+// host, so that a CPU test can hold the very code the kernels run against
+// Python integers and the JAX package:
 //   g++ -O2 -std=c++17 -shared -fPIC -o libotti_field_host.so host_check.cpp
 // No kernel is built from this file.
 #include "field.cuh"
+#include "ristretto.cuh"
 
 extern "C" void otti_host_set_consts(const int32_t* consts) {
   set_field_consts(consts);
@@ -34,5 +36,21 @@ extern "C" void otti_host_addsub(const int32_t* a, const int32_t* b, int32_t* ou
       z = op == 0 ? x : op == 1 ? fe_add<FIELD_BASE>(x, y) : fe_sub<FIELD_BASE>(x, y);
     }
     fe_unpack(z, out + i * OTTI_NL);
+  }
+}
+
+// consts: FieldConsts[2] then RistrettoConsts, as otti_ristretto_init takes them.
+extern "C" void otti_host_set_ristretto_consts(const int32_t* consts) {
+  set_field_consts(consts);
+  set_ristretto_consts(reinterpret_cast<const uint32_t*>(consts) + sizeof(FieldConsts) * 2 / 4);
+}
+
+// out[32 i ..] = the ristretto encoding of point i of [n, 22] limb rows x, y, z, t.
+extern "C" void otti_host_ristretto_encode(const int32_t* x, const int32_t* y, const int32_t* z,
+                                           const int32_t* t, uint8_t* out, long long n) {
+  for (long long i = 0; i < n; ++i) {
+    const long long o = i * OTTI_NL;
+    ristretto_encode_fe(fe_pack(x + o), fe_pack(y + o), fe_pack(z + o), fe_pack(t + o),
+                        out + 32 * i);
   }
 }

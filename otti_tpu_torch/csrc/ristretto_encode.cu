@@ -1,0 +1,68 @@
+// Kernel K4: ristretto255 encoding of a batch of extended Edwards points.
+//
+// Replaces otti_tpu/curve/ristretto.py::encode (with sqrt_ratio_m1), which
+// the JAX package leaves to XLA as a chain of batched field operations.  In
+// the port's plain torch that chain is some 270 launches of the multiply
+// kernel and a few hundred more for the adds, selects and canonicalisations
+// (an inverse square root alone is 251 squarings), once for every
+// commitment the device transcript absorbs: three calls a zero-knowledge
+// sumcheck round.  Here it is one launch.
+//
+// What bounds it on an H100: operations.  A point costs about 270 BASE
+// multiplies (csrc/field.cuh: 72 32x32->64 multiplies, 144 32-bit
+// multiply-adds each) against 4 x 88 B read and 32 B written, so at the
+// card's integer rate the arithmetic, not the memory, sets the least time.
+// At the transcript's sizes (1, 2 or 11 points; a witness commitment's 2^k
+// rows) that least time is far below the launch, and what the launch takes
+// is the chain's latency: 270 dependent multiplies in one thread.  The
+// design is the simplest that is right:
+//
+//   * One thread a point, everything in registers (ristretto.cuh on
+//     field.cuh's fe_mul / fe_add / fe_sub): canonicalise X, Y, Z, T; the
+//     fixed addition chain of sqrt_ratio_m1 for the exponent (p - 5) / 8;
+//     the sign tests on canonical values (bit 0); the selects; the final
+//     canonical value written as 32 little-endian bytes.
+//   * It reads the port's semi-reduced limbs as the multiply kernel and the
+//     torch ops leave them (any row in [0, 2^256) with |limb| < 2^18).
+//   * 128 threads a block; a batch of 4,096 points fills 32 blocks.
+#include "ristretto.cuh"
+
+#define RE_THREADS 128
+
+__global__ void __launch_bounds__(RE_THREADS)
+ristretto_encode_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                        const int32_t* __restrict__ z, const int32_t* __restrict__ t,
+                        uint8_t* __restrict__ out, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * RE_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const int64_t off = i * OTTI_NL;
+  uint8_t enc[32];
+  ristretto_encode_fe(fe_load_row(x + off), fe_load_row(y + off), fe_load_row(z + off),
+                      fe_load_row(t + off), enc);
+  uint32_t* dst = reinterpret_cast<uint32_t*>(out + i * 32);
+#pragma unroll
+  for (int w = 0; w < 8; ++w)
+    dst[w] = (uint32_t)enc[4 * w] | ((uint32_t)enc[4 * w + 1] << 8) |
+             ((uint32_t)enc[4 * w + 2] << 16) | ((uint32_t)enc[4 * w + 3] << 24);
+}
+
+// consts: the FieldConsts[2] block (as every kernel library takes it), then
+// the 16 words of RistrettoConsts.
+extern "C" int otti_ristretto_init(const int32_t* consts) {
+  const int err = set_field_consts(consts);
+  if (err) return err;
+  return set_ristretto_consts(reinterpret_cast<const uint32_t*>(consts) +
+                              sizeof(FieldConsts) * 2 / 4);
+}
+
+// x, y, z, t: [n, 22] int32 limb rows on the device (8-byte aligned rows);
+// out: n x 32 bytes (4-byte aligned).  Returns the launch's cudaGetLastError().
+extern "C" int otti_ristretto_encode(const int32_t* x, const int32_t* y, const int32_t* z,
+                                     const int32_t* t, uint8_t* out, long long n,
+                                     void* stream) {
+  if (n <= 0) return n == 0 ? 0 : (int)cudaErrorInvalidValue;
+  const long long blocks = (n + RE_THREADS - 1) / RE_THREADS;
+  ristretto_encode_kernel<<<(unsigned)blocks, RE_THREADS, 0, (cudaStream_t)stream>>>(
+      x, y, z, t, out, n);
+  return (int)cudaGetLastError();
+}

@@ -6,6 +6,10 @@
 // _round_cubic_kernel / _round_quad_kernel (first round, no bind) and
 // _bind_kernel (the bare final bind).
 //
+// The challenge comes by value from the host, or from device memory where
+// the device transcript squeezed it (then no host sync stands between two
+// rounds).
+//
 // A launch binds the previous challenge r into the active prefix of every
 // table, t[j] <- t[j] + r * (t[j + ah] - t[j]) for j < ah (ah: the previous
 // active half), and then evaluates the round polynomial over the pairs
@@ -94,6 +98,7 @@ struct Round {
   int32_t* tab[4];
   int ntab;
   Fe r;
+  const int32_t* r_dev;  // when set: r as 22 limbs in device memory (any semi form)
   int64_t ah;      // bind distance (0: no bind)
   int64_t h;       // pair distance
   int64_t nlo;     // rows of the lo segments that exist
@@ -152,9 +157,16 @@ sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch,
       int32_t* mine = raw[q][sg] + row * OTTI_NL;
       Fe x = load_canon(mine);
       if (bind) {
+        Fe r = rd.r;
+        if (rd.r_dev) {  // squeezed on the card: read where the transcript left it
+          int32_t limbs[OTTI_NL];
+#pragma unroll
+          for (int l = 0; l < OTTI_NL; ++l) limbs[l] = rd.r_dev[l];
+          r = fe_canon<FIELD_SCALAR>(fe_pack(limbs));
+        }
         const Fe y = load_canon(raw[q][sg + 2] + row * OTTI_NL);
         x = fe_add<FIELD_SCALAR>(
-            x, fe_mul<FIELD_SCALAR>(rd.r, fe_sub<FIELD_SCALAR>(y, x)));
+            x, fe_mul<FIELD_SCALAR>(r, fe_sub<FIELD_SCALAR>(y, x)));
         fe_store_row(mine, x);
       }
 #pragma unroll
@@ -248,8 +260,10 @@ extern "C" int otti_sumcheck_init(const int32_t* consts) {
 }
 
 // tables: ntab (2 or 4) pointers to [n, 22] int32 device tables, updated in
-// place.  r: the 8 words of the canonical challenge in host memory (ignored
-// when ah == 0).  ah: the previous active half (0: no bind, 1: bare final
+// place.  r: the 8 words of the canonical challenge in host memory, or
+// r_dev: the challenge as 22 int32 limbs in device memory (a value in
+// [0, 2^256), |limb| < 2^18), read by the kernel; r_dev wins when both are
+// given; both are ignored when ah == 0.  ah: the previous active half (0: no bind, 1: bare final
 // bind, which evaluates nothing).  half: the pair distance when ah == 0.
 // scratch: 25 uint64 on the device, zero before the first launch and left
 // zero by every launch (24 accumulators and the ticket); launches that share
@@ -257,7 +271,7 @@ extern "C" int otti_sumcheck_init(const int32_t* consts) {
 // quad), unused when ah == 1.  Returns the launch's cudaGetLastError().
 extern "C" int otti_sumcheck_round(int32_t* t0, int32_t* t1, int32_t* t2,
                                    int32_t* t3, int ntab, const uint32_t* r_host,
-                                   long long ah, long long half, u64* scratch,
+                                   const int32_t* r_dev, long long ah, long long half, u64* scratch,
                                    int32_t* evals, void* stream) {
   if ((ntab != 2 && ntab != 4) || ah < 0) return (int)cudaErrorInvalidValue;
   Round rd;
@@ -267,6 +281,7 @@ extern "C" int otti_sumcheck_round(int32_t* t0, int32_t* t1, int32_t* t2,
   rd.tab[3] = t3;
   rd.ntab = ntab;
   for (int w = 0; w < OTTI_NW; ++w) rd.r.w[w] = ah > 0 && r_host ? r_host[w] : 0u;
+  rd.r_dev = ah > 0 ? r_dev : nullptr;
   rd.ah = ah;
   rd.h = ah > 0 ? ah / 2 : half;
   rd.npairs = rd.h;

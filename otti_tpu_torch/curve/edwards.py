@@ -2,7 +2,8 @@
 otti_tpu/curve/edwards.py).
 
 A point batch is a dict {"x","y","z","t"} of ``[..., 22]`` int32 limb
-tensors over GF(2^255-19).  Formulas: add-2008-hwcd-3 (9M) and
+tensors over GF(2^255-19), each coordinate canonical (``add`` and
+``double`` rely on it).  Formulas: add-2008-hwcd-3 (9M) and
 dbl-2008-hwcd (4M+4S), complete on the prime-order ristretto subgroup, so
 every point of a batch follows the same instruction stream.  The field
 multiplies go to the multiply kernel on a CUDA device.
@@ -35,36 +36,99 @@ def identity(shape=(), device="cpu") -> dict:
     return pt(zero, one, one.clone(), zero.clone())
 
 
+_P_LIMBS: dict = {}
+
+
+def _p_limbs(device) -> torch.Tensor:
+    """The canonical limbs of p (int32 [22]), uploaded once per device."""
+    key = str(device)
+    t = _P_LIMBS.get(key)
+    if t is None:
+        t = _P_LIMBS[key] = torch.tensor(BASE.modulus_limbs, dtype=torch.int32, device=device)
+    return t
+
+
 def add(p: dict, q: dict) -> dict:
-    """Unified extended-coordinate addition (complete; 9 field muls)."""
-    d2 = F.const(BASE, D2_INT, (), p["x"].device)
-    a = F.mul(BASE, F.sub(BASE, p["y"], p["x"]), F.sub(BASE, q["y"], q["x"]))
-    b = F.mul(BASE, F.add(BASE, p["y"], p["x"]), F.add(BASE, q["y"], q["x"]))
-    c = F.mul(BASE, F.mul(BASE, p["t"], d2), q["t"])
-    d = F.mul(BASE, F.add(BASE, p["z"], p["z"]), q["z"])
-    e = F.sub(BASE, b, a)
-    f = F.sub(BASE, d, c)
-    g = F.add(BASE, d, c)
-    h = F.add(BASE, b, a)
-    return pt(F.mul(BASE, e, f), F.mul(BASE, g, h), F.mul(BASE, f, g), F.mul(BASE, e, h))
+    """Unified extended-coordinate addition (complete; 9 field muls, in three
+    batched multiply launches: the four independent products of the inputs,
+    the one by 2d, then the four of the result).
+
+    Every coordinate this module makes is canonical (each is a product of
+    the multiply, or a constant), so the sums and differences that only
+    feed a multiply are taken lazily, as plain limb arithmetic: a + b and
+    a - b + p of canonical a, b lie in [0, 2p) with limbs in (-2^12, 2^13),
+    which the multiply takes as it is (any row below 2^256 whose limbs stay
+    under 2^18; the plain version's reduction allows 2^13)."""
+    d2 = F.const(BASE, D2_INT, (), p["x"].device, cached=True)
+    pl = _p_limbs(p["x"].device)
+    shape = torch.broadcast_shapes(p["x"].shape, q["x"].shape)
+    p, q = (tree_map(lambda a: a.expand(shape), r) for r in (p, q))
+    ys, xs = torch.stack([p["y"], q["y"]]), torch.stack([p["x"], q["x"]])
+    s, u = ys + pl - xs, ys + xs  # y - x and y + x of both points
+    a, b, tt, d = F.mul(BASE, torch.stack([s[0], u[0], p["t"], p["z"] + p["z"]]),
+                        torch.stack([s[1], u[1], q["t"], q["z"]]))
+    c = F.mul(BASE, tt, d2)
+    e, f = torch.stack([b, d]) + pl - torch.stack([a, c])  # b - a, d - c
+    g, h = torch.stack([d, b]) + torch.stack([c, a])  # d + c, b + a
+    return pt(*F.mul(BASE, torch.stack([e, g, f, e]), torch.stack([f, h, g, h])))
 
 
 def double(p: dict) -> dict:
-    """Extended-coordinate doubling (4M + 4S, a = -1)."""
-    a = F.square(BASE, p["x"])
-    b = F.square(BASE, p["y"])
-    zz = F.square(BASE, p["z"])
-    c = F.add(BASE, zz, zz)
-    h = F.add(BASE, a, b)
-    e = F.sub(BASE, h, F.square(BASE, F.add(BASE, p["x"], p["y"])))
-    g = F.sub(BASE, a, b)
+    """Extended-coordinate doubling (dbl-2008-hwcd, a = -1), in two batched
+    multiply launches: x^2, y^2, 2 z^2 and x y, then the four products.
+    Sums and differences lazily, as in ``add``; f = 2 z^2 + x^2 - y^2 is
+    the one that needs a reduction (it may reach 3p)."""
+    pl = _p_limbs(p["x"].device)
+    x, y, z = p["x"], p["y"], p["z"]
+    a, b, c, xy = F.mul(BASE, torch.stack([x, y, z, x]), torch.stack([x, y, z + z, y]))
+    h = a + b
+    g = a + pl - b  # a - b
+    e = (pl - xy) * 2  # -2 x y, in (0, 2p]
     f = F.add(BASE, c, g)
-    return pt(F.mul(BASE, e, f), F.mul(BASE, g, h), F.mul(BASE, f, g), F.mul(BASE, e, h))
+    return pt(*F.mul(BASE, torch.stack([e, g, f, e]), torch.stack([f, h, g, h])))
+
+
+def negate(p: dict) -> dict:
+    """-p, with canonical coordinates as every point of this module has."""
+    return pt(F.canon(BASE, F.neg(BASE, p["x"])), p["y"], p["z"],
+              F.canon(BASE, F.neg(BASE, p["t"])))
 
 
 def select(mask: torch.Tensor, p: dict, q: dict) -> dict:
     """where(mask, p, q) point-wise."""
     return tree_map(lambda a, b: F.select(mask, a, b), p, q)
+
+
+def cadd(mask: torch.Tensor, p: dict, q: dict) -> dict:
+    """p + q where mask, else p (the same launches either way)."""
+    return select(mask, add(p, q), p)
+
+
+def eq(p: dict, q: dict) -> torch.Tensor:
+    """Projective equality: X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1."""
+    ex = F.eq(BASE, F.mul(BASE, p["x"], q["z"]), F.mul(BASE, q["x"], p["z"]))
+    ey = F.eq(BASE, F.mul(BASE, p["y"], q["z"]), F.mul(BASE, q["y"], p["z"]))
+    return ex & ey
+
+
+def scalar_mul_bits(p: dict, bits: torch.Tensor) -> dict:
+    """p * k for ``bits`` [..., n_bits] LSB first, as a double-and-always-add
+    ladder: every bit costs one double and one add whatever its value, and
+    the bits stay on the device (a select, not a branch on the host)."""
+    acc = identity(tuple(bits.shape[:-1]), bits.device)
+    cur = p
+    n_bits = bits.shape[-1]
+    for i in range(n_bits):
+        acc = cadd(bits[..., i] == 1, acc, cur)
+        if i + 1 < n_bits:  # the last doubling would go unused
+            cur = double(cur)
+    return acc
+
+
+def scalar_mul(p: dict, k_limbs: torch.Tensor) -> dict:
+    """p * k for SCALAR limbs k (any semi form: the bits are those of the
+    canonical value, 253 of them)."""
+    return scalar_mul_bits(p, scalars_to_bits(k_limbs, 253))
 
 
 def stack(points: list) -> dict:

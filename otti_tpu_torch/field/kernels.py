@@ -27,7 +27,7 @@ FIELD_IDS = {"scalar": 0, "base": 1}
 
 def mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b mod m, canonical, in plain torch (any device, broadcasting)."""
-    return F.canon(spec, F.reduce_wide(spec, F.conv(a, b)))
+    return F.canon(spec, F.reduce_product(spec, F.conv(a, b)))
 
 
 def mul_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

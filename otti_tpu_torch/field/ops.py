@@ -52,6 +52,11 @@ def _consts(spec: FieldSpec, device) -> dict:
             "fold": torch.tensor(spec.fold_matrix, dtype=I64, device=device),
         }
         c["m_words"] = _to_words(c["m"])
+        c["two_m_words"] = _to_words(c["two_m"])
+        bias = spec.modulus << _BIAS_SHIFT  # 21 limbs and the rest in the top one
+        c["bias"] = torch.tensor(
+            list(int_to_limbs(bias % (1 << (LIMB_BITS * FOLD_LIMB)), FOLD_LIMB))
+            + [bias >> (LIMB_BITS * FOLD_LIMB)], dtype=I64, device=device)
         if spec.kind == "scalar":
             c["tail"] = torch.tensor(spec.tail_limbs, dtype=I64, device=device)
         _CONST_CACHE[key] = c
@@ -65,12 +70,28 @@ _CONST_CACHE: dict = {}
 # Limb-level primitives (int64 in, int64 out)
 # ---------------------------------------------------------------------------
 
+_DEV_CONSTS: dict = {}  # (name, n, device) -> small int64 index tensors
+
+
+def _dev_const(name: str, n: int, device) -> torch.Tensor:
+    """``keep``: n limb masks, 2^12 - 1 but all ones for the top limb (it is
+    never split); ``shifts``: the bit offsets of the n limbs of a word."""
+    key = (name, n, str(device))
+    t = _DEV_CONSTS.get(key)
+    if t is None:
+        if name == "keep":
+            vals = [LIMB_MASK] * (n - 1) + [-1]
+        else:
+            vals = [LIMB_BITS * i for i in range(n)]
+        t = _DEV_CONSTS[key] = torch.tensor(vals, dtype=I64, device=device)
+    return t
+
+
 def _fit(x: torch.Tensor, n_out: int) -> torch.Tensor:
     """Zero-pad to n_out limbs, or fold limbs >= n_out into the top limb."""
     n_in = x.shape[-1]
     if n_in < n_out:
-        pad = x.new_zeros(x.shape[:-1] + (n_out - n_in,))
-        return torch.cat([x, pad], dim=-1)
+        return torch.nn.functional.pad(x, (0, n_out - n_in))
     if n_in > n_out:
         top = x[..., n_out - 1].clone()
         for j in range(n_out, n_in):
@@ -88,10 +109,9 @@ def _to_words(x: torch.Tensor) -> torch.Tensor:
     of the same value (word w = sum of limbs 4w..4w+3, shifted)."""
     pad = (-x.shape[-1]) % _WORD_LIMBS
     if pad:
-        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+        x = torch.nn.functional.pad(x, (0, pad))
     x = x.reshape(x.shape[:-1] + (-1, _WORD_LIMBS))
-    shifts = torch.arange(0, _WORD_BITS, LIMB_BITS, device=x.device)
-    return (x << shifts).sum(-1)
+    return (x << _dev_const("shifts", _WORD_LIMBS, x.device)).sum(-1)
 
 
 def _carry_words(w: torch.Tensor) -> torch.Tensor:
@@ -105,7 +125,7 @@ def _carry_words(w: torch.Tensor) -> torch.Tensor:
 
 def _from_words(w: torch.Tensor, n_out: int) -> torch.Tensor:
     """Carried words -> n_out limbs, the top limb unmasked (keeps the rest)."""
-    shifts = torch.arange(0, _WORD_BITS, LIMB_BITS, device=w.device)
+    shifts = _dev_const("shifts", _WORD_LIMBS, w.device)
     limbs = ((w[..., None] >> shifts) & LIMB_MASK).flatten(-2)[..., :n_out].clone()
     top = n_out - 1
     limbs[..., top] = w[..., top // _WORD_LIMBS] >> (LIMB_BITS * (top % _WORD_LIMBS))
@@ -118,17 +138,29 @@ def carry(x: torch.Tensor, n_out: int, passes: int = 4) -> torch.Tensor:
     12 bits, so ``passes`` >= ceil((bits - 12) / 12) + 2 brings limbs of
     magnitude < 2^bits to within a few units of [0, 2^12)."""
     x = _fit(x.to(I64), n_out)
+    keep = _dev_const("keep", n_out, x.device)
     for _ in range(passes):
-        lo = x & LIMB_MASK
-        hi = x >> LIMB_BITS
-        x = torch.cat([lo[..., :-1], x[..., -1:]], dim=-1)
-        x[..., 1:] += hi[..., :-1]
+        hi = x[..., :-1] >> LIMB_BITS
+        x = x & keep
+        x[..., 1:] += hi
     return x
 
 
+_CONV_OUTER_ROWS = 1 << 12  # up to here one outer product; beyond, 22 row adds
+
+
 def conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Schoolbook limb convolution [..., 22] x [..., 22] -> [..., 43] (int64)."""
+    """Schoolbook limb convolution [..., 22] x [..., 22] -> [..., 43] (int64).
+
+    Few rows: the [22, 22] outer product, each row i shifted right by i (pad
+    to 44 columns, then read the flat buffer in rows of 43) and summed: five
+    ops, where launches, not bytes, set the time.  Many rows: 22 shifted
+    multiply-adds, which keep the temporary at [..., 43]."""
     a, b = torch.broadcast_tensors(a.to(I64), b.to(I64))
+    if a[..., 0].numel() <= _CONV_OUTER_ROWS:
+        prod = torch.nn.functional.pad(a[..., :, None] * b[..., None, :], (0, N_LIMBS))
+        flat = prod.flatten(-2)[..., : N_LIMBS * CONV_LIMBS]
+        return flat.reshape(a.shape[:-1] + (N_LIMBS, CONV_LIMBS)).sum(-2)
     out = a.new_zeros(a.shape[:-1] + (CONV_LIMBS,))
     for i in range(N_LIMBS):
         out[..., i : i + N_LIMBS] += a[..., i : i + 1] * b
@@ -177,6 +209,28 @@ def reduce_wide(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     return _fold_final(spec, x).to(I32)
 
 
+_BIAS_SHIFT = 40  # reduce_product adds 2^40 m: the fold's negative part is below 2^290
+
+
+def reduce_product(spec: FieldSpec, c: torch.Tensor) -> torch.Tensor:
+    """Reduce a convolution of two rows with values in [0, 2^256) and limbs
+    of magnitude below 2^13 ([..., 43], each limb a sum of 22 products: the
+    semi forms, and the lazy sums of curve/edwards.py) to semi form (int32):
+    what ``reduce_wide`` does for any wide vector, in fewer steps.
+
+    The high limbs are folded before anything is carried: limbs 21..42 go
+    through the fold matrix at once (|c_k| < 2^30.5, fold entries < 2^12:
+    sums below 2^47).  Negative limbs can make the folded value negative by
+    less than 2^30.5 (2^252 + 22 m) < 2^290, so 2^40 m is added; the value
+    is then in [0, 2^300), and five carry passes bring it to the 23-limb
+    form that ``_fold_final`` takes."""
+    cst = _consts(spec, c.device)
+    x = torch.nn.functional.pad(c[..., :FOLD_LIMB], (0, 1))
+    x = x + (c[..., FOLD_LIMB:, None] * cst["fold"][: CONV_LIMBS - FOLD_LIMB]).sum(-2)
+    x = carry(x + cst["bias"], FOLD_LIMB + 2, passes=5)
+    return _fold_final(spec, x).to(I32)
+
+
 # ---------------------------------------------------------------------------
 # Field API (semi form in, semi form out, int32)
 # ---------------------------------------------------------------------------
@@ -185,13 +239,27 @@ def zeros(shape=(), device="cpu") -> torch.Tensor:
     return torch.zeros(tuple(shape) + (N_LIMBS,), dtype=I32, device=device)
 
 
-def const(spec: FieldSpec, value: int, shape=(), device="cpu") -> torch.Tensor:
-    limbs = torch.tensor(int_to_limbs(value % spec.modulus), dtype=I32, device=device)
+def const(spec: FieldSpec, value: int, shape=(), device="cpu", cached: bool = False) -> torch.Tensor:
+    """``value`` broadcast to ``shape`` (a view: read it, do not write it).
+    With ``cached`` the limbs are uploaded once per (field, value, device)
+    and kept, so that a warm prove sends no constant from the host: for the
+    fixed constants of the formulas, not for data."""
+    if not cached:
+        limbs = torch.tensor(int_to_limbs(value % spec.modulus), dtype=I32, device=device)
+        return limbs.expand(tuple(shape) + (N_LIMBS,))
+    key = (spec.name, value % spec.modulus, str(device))
+    limbs = _CONST_VALUES.get(key)
+    if limbs is None:
+        limbs = _CONST_VALUES[key] = torch.tensor(
+            int_to_limbs(value % spec.modulus), dtype=I32, device=device)
     return limbs.expand(tuple(shape) + (N_LIMBS,))
 
 
+_CONST_VALUES: dict = {}
+
+
 def ones(spec: FieldSpec, shape=(), device="cpu") -> torch.Tensor:
-    return const(spec, 1, shape, device)
+    return const(spec, 1, shape, device, cached=True)
 
 
 def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -255,18 +323,24 @@ def inv(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     return torch.where(zero[:, None], torch.zeros_like(out), out).reshape(x.shape)
 
 
+def eq(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Element-wise a == b mod m -> bool [...]."""
+    return (canon(spec, a) == canon(spec, b)).all(dim=-1)
+
+
 def is_zero(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return (canon(spec, a) == 0).all(dim=-1)
 
 
 def canon(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
-    """Canonical representative in [0, m) of a semi value (< 3m): an exact
-    carry and two conditional subtractions of m, on 48-bit words."""
-    m = _consts(spec, x.device)["m_words"]
-    w = _carry_words(_to_words(_fit(x.to(I64), N_LIMBS)))
-    for _ in range(2):
-        d = _carry_words(w - m)
-        w = torch.where((d[..., -1] >= 0)[..., None], d, w)
+    """Canonical representative in [0, m) of a semi value (< 3m): the value,
+    the value - m and the value - 2m carried exactly on 48-bit words in one
+    chain; the smallest that is not negative."""
+    c = _consts(spec, x.device)
+    w = _to_words(_fit(x.to(I64), N_LIMBS))
+    cand = _carry_words(torch.stack([w, w - c["m_words"], w - c["two_m_words"]]))
+    ok = (cand[..., -1] >= 0)[..., None]
+    w = torch.where(ok[2], cand[2], torch.where(ok[1], cand[1], cand[0]))
     return _from_words(w, N_LIMBS).to(I32)
 
 

@@ -169,8 +169,8 @@ def msm_fixed_base(n_gens: int, label: bytes, scalar_matrix: torch.Tensor,
     rows, cols = scalar_matrix.shape[0], scalar_matrix.shape[1]
     digits = window_digits(scalar_matrix)  # [rows, cols, N_WIN]
     gen_idx = torch.arange(cols, device=device)
-    if with_blind:  # the blind scalar is the LAST column -> generator H
-        gen_idx[-1] = n_gens
+    if with_blind:  # the blind scalar is the LAST column -> generator H (no host copy)
+        gen_idx = gen_idx + (gen_idx == cols - 1) * (n_gens - cols + 1)
     gen_idx = gen_idx[None, :, None]
     win_idx = torch.arange(N_WIN, device=device)[None, None, :]
     flat = (gen_idx * N_WIN + win_idx) * N_DIGITS + digits

@@ -15,6 +15,11 @@ int32 (SCALAR field), updating them IN PLACE:
 Returns the evaluations as canonical limbs ``[3 or 2, 22]`` (None after the
 bare final bind).  Entries past the active prefix are left as they are.
 
+``r`` is a Python int, or a ``[22]`` int32 limb tensor on the tables'
+device (any semi form; the device transcript squeezes it there, and the
+kernel reads it from device memory, so no host sync sits between rounds).
+Both forms of one value give the same bits.
+
 ``sumcheck_round`` launches the CUDA kernel of ``csrc/sumcheck_round.cu``
 for CUDA tables and runs ``sumcheck_round_plain`` for CPU tables;
 ``sumcheck_round_plain`` is the same function in plain torch on any
@@ -49,18 +54,21 @@ def _check_args(tables, degree, r, prev_half):
     if r is None:
         if n < 2 or n & (n - 1):
             raise ValueError("first round needs a power-of-two table of >= 2 rows")
-    elif prev_half is None or prev_half < 1 or 2 * prev_half > n:
+        return n
+    if prev_half is None or prev_half < 1 or 2 * prev_half > n:
         raise ValueError(f"bad previous active half {prev_half} for n = {n}")
+    if isinstance(r, torch.Tensor):
+        if r.shape != (N_LIMBS,) or r.dtype != torch.int32 or r.device != tables[0].device:
+            raise ValueError("a tensor challenge must be [22] int32 limbs on the tables' device")
     return n
 
 
-def sumcheck_round_plain(tables, degree: int, r: int | None = None,
-                         prev_half: int | None = None):
+def sumcheck_round_plain(tables, degree: int, r=None, prev_half: int | None = None):
     """Plain-torch round (any device; tables updated in place)."""
     n = _check_args(tables, degree, r, prev_half)
     if r is not None:
         ah = prev_half
-        rl = F.const(SCALAR, r, (), tables[0].device)
+        rl = r if isinstance(r, torch.Tensor) else F.const(SCALAR, r, (), tables[0].device)
         for t in tables:
             lo, hi = t[:ah], t[ah : 2 * ah]
             bound = F.add(SCALAR, lo, mul_plain(SCALAR, F.sub(SCALAR, hi, lo), rl))
@@ -101,10 +109,10 @@ def _scratch_for(dev: torch.device, stream: int) -> torch.Tensor:
     return buf
 
 
-def sumcheck_round_cuda(tables, degree: int, r: int | None = None,
-                        prev_half: int | None = None):
+def sumcheck_round_cuda(tables, degree: int, r=None, prev_half: int | None = None):
     """The round by the CUDA kernel, one launch (tables: contiguous int32
-    CUDA tensors; a previous active half must be a power of two)."""
+    CUDA tensors; a previous active half must be a power of two; ``r`` an
+    int or a [22] int32 tensor on the tables' device)."""
     n = _check_args(tables, degree, r, prev_half)
     dev = tables[0].device
     for t in tables:
@@ -113,20 +121,24 @@ def sumcheck_round_cuda(tables, degree: int, r: int | None = None,
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("sumcheck_round_cuda: contiguous int32 tables required")
     k = 3 if degree == 3 else 2
+    r_words, r_dev = np.zeros(8, np.uint32), None
     if r is None:
         ah, half = 0, n // 2
-        r_words = np.zeros(8, np.uint32)
     else:
         ah, half = prev_half, 0
         if ah & (ah - 1):
             raise ValueError(f"sumcheck_round_cuda: previous half {ah} is not a power of two")
-        r_words = np.frombuffer((r % SCALAR.modulus).to_bytes(32, "little"), "<u4")
+        if isinstance(r, torch.Tensor):
+            r_dev = r.contiguous()
+        else:
+            r_words = np.frombuffer((r % SCALAR.modulus).to_bytes(32, "little"), "<u4")
     stream = _build.stream_ptr(tables[0])
     evals = None if ah == 1 else torch.empty((k, N_LIMBS), dtype=torch.int32, device=dev)
     ptrs = [t.data_ptr() for t in tables] + [0] * (4 - len(tables))
     lib = _build.library()
     err = lib.otti_sumcheck_round(
-        *ptrs, len(tables), r_words.ctypes.data, ah, half,
+        *ptrs, len(tables), r_words.ctypes.data, 0 if r_dev is None else r_dev.data_ptr(),
+        ah, half,
         _scratch_for(dev, stream).data_ptr(),
         0 if evals is None else evals.data_ptr(), stream,
     )
@@ -137,8 +149,7 @@ def sumcheck_round_cuda(tables, degree: int, r: int | None = None,
     return evals
 
 
-def sumcheck_round(tables, degree: int, r: int | None = None,
-                   prev_half: int | None = None):
+def sumcheck_round(tables, degree: int, r=None, prev_half: int | None = None):
     """One round: the CUDA kernel for CUDA tables, plain torch for CPU."""
     dev = tables[0].device.type
     if dev == "cuda":

@@ -559,3 +559,49 @@ def test_zkif_export_bytes_equal_and_import_round_trip(tmp_path, tiny_lp):
         assert s2.digest() == s3.digest() == sa.digest()
         assert (v2, i2) == (v3, i3) == (va, ia)
         assert s2.is_satisfied(v2, i2)
+
+
+# ---- function-level copies (the CLI's prover choice, the strobe export) ----
+
+FUNCTION_COPIES = [
+    ("otti_tpu_torch/cli.py", "otti_tpu/cli.py", "_choose_fused"),
+    ("otti_tpu_torch/transcript/device.py", "otti_tpu/transcript/device.py", "export_host_strobe"),
+]
+
+
+def _function_source(path, name):
+    import ast
+
+    with open(os.path.join(REPO, path)) as f:
+        text = f.read()
+    node = next(n for n in ast.parse(text).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    return ast.get_source_segment(text, node), text.splitlines()[node.lineno - 2]
+
+
+@pytest.mark.parametrize("copy_path,orig_path,name", FUNCTION_COPIES, ids=lambda x: str(x))
+def test_function_is_a_marked_copy(copy_path, orig_path, name):
+    """The copied function is its original's text under one marking line."""
+    copy, marker = _function_source(copy_path, name)
+    original, _ = _function_source(orig_path, name)
+    assert marker == f"# copied from {orig_path}::{name}"
+    assert copy == original
+
+
+@pytest.mark.parametrize("strobe", ["default", "python"])
+def test_export_host_strobe_equal(strobe, monkeypatch):
+    """The state and offsets handed to a device transcript, from the native
+    strobe (its C layout) and from the Python one."""
+    from otti_tpu.transcript import device as j_device
+    from otti_tpu_torch.transcript import device as t_device
+
+    if strobe == "python":
+        monkeypatch.setattr(t_merlin, "_strobe_factory", lambda l: t_merlin.Strobe128(l))
+        monkeypatch.setattr(j_merlin, "_strobe_factory", lambda l: j_merlin.Strobe128(l))
+    ta, tb = t_merlin.Transcript(b"export"), j_merlin.Transcript(b"export")
+    for t in (ta, tb):
+        t.append_message(b"m", b"\x05" * 70)
+        t.challenge_scalar(b"c")
+        t.append_u64(b"n", 9)
+    a, b = t_device.export_host_strobe(ta.strobe), j_device.export_host_strobe(tb.strobe)
+    assert np.array_equal(a[0], b[0]) and a[1:] == b[1:]

@@ -22,6 +22,8 @@ from otti_tpu.oracle import sgd_oracle
 from otti_tpu.spartan import nizk as JN
 from otti_tpu.spartan import serial as JS
 from otti_tpu_torch.codegen import sgd_cert as t_sgd_cert
+from otti_tpu_torch.spartan import fused as TF
+from otti_tpu_torch.spartan import hybrid as TH
 from otti_tpu_torch.spartan import nizk as TN
 from otti_tpu_torch.spartan import r1cs as TR
 from otti_tpu_torch.spartan import serial as TS
@@ -97,6 +99,17 @@ def test_each_verifier_accepts_the_others_proof(proved, name):
     assert TN.verify(p["dev_t"], p["inputs"], p["port"])
     assert JN.verify(p["dev_j"], p["inputs"], JS.loads(TS.dumps(p["port"])))
     assert TN.verify(p["dev_t"], p["inputs"], TS.loads(JS.dumps(p["jax"])))
+
+
+@pytest.mark.parametrize("name", ["toy", "sgd8x3"])
+def test_device_fs_provers_equal_jax(proved, name):
+    """fused.prove and hybrid.prove (the transcript on the device) give the
+    JAX package's nizk.prove bytes; its verifier accepts them."""
+    p = proved[name]
+    for prove in (TF.prove, TH.prove):
+        proof = prove(p["dev_t"], p["vars"], p["inputs"])
+        assert TS.dumps(proof) == JS.dumps(p["jax"]), prove.__module__
+        assert JN.verify(p["dev_j"], p["inputs"], JS.loads(TS.dumps(proof)))
 
 
 def test_changed_public_input_or_claim_is_rejected(proved):
