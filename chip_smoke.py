@@ -41,20 +41,28 @@ Phases (each prints a line; any failure exits non-zero):
               memory; both kernels launched; a 256-constraint R1CS proved on
               the card and on the CPU, the two proofs byte-equal; two
               tampered proofs rejected
- 10. device_fs the device transcript: K3 (Keccak-f[1600]) == plain over a
-              chain of 64 permutations and on 4,096 states, K4 (ristretto
-              encoding) == plain == the host library at 1, 4 and 4,096
-              points, kernel 2 with its challenge in device memory == with
-              it as an int (2^15 rows, both degrees), each timed against its
-              plain version and its bound; then optdigits 3v8 (hybrid),
-              iris 0v1 (fused) and the LP 117 x 225 (hybrid) proved in zero
-              knowledge by the prover the CLI picks, byte-equal to
-              zknizk.prove for one blind seed, cold and warm against it;
-              fused and hybrid plain == nizk; a tampered proof rejected; no
-              host sync between the two transfers (OTTI_SYNC_CHECK=1); the
-              launches of a warm prove; run_sgd under OTTI_CLASSIC=1 (phase
-              main drives the default), run_lp by default, all four kernels
-              launched
+ 10. device_fs the device transcript: measurement probes on ristretto.cuh and
+              keccak.cuh (SASS of one square, old and new; a dependent
+              square, multiply and permutation in one thread; the empty
+              kernel); K3 (Keccak-f[1600], STROBE pad in the same launch)
+              == plain over a chain of 64 permutations, every other one
+              padded, and on 4,096 states with and without the pad; K4
+              (ristretto encoding) == plain == the host library at n = 1,
+              2, 11, the optdigits witness rows and 4,096; both timed at
+              those sizes against their plain versions, bounds and
+              critical-path floors; kernel 2 with its challenge in device
+              memory == with it as an int (2^15 rows, both degrees); then
+              optdigits 3v8 (hybrid), iris 0v1 (fused) and the LP 117 x 225
+              (hybrid) proved in zero knowledge by the prover the CLI picks,
+              byte-equal to zknizk.prove for one blind seed, cold and warm
+              against it; fused and hybrid plain == nizk; a tampered proof
+              rejected; no host sync between the two transfers
+              (OTTI_SYNC_CHECK=1); the launches of a warm prove; run_sgd
+              under OTTI_CLASSIC=1 (phase main drives the default), run_lp
+              by default, all four kernels launched; last, a warm optdigits
+              zk prove under torch.profiler with the pad as a torch XOR and
+              fused into K3: device launches, K3 and K4 device time, the
+              proofs byte-equal
  11. profile  a warm optdigits prove, transparent, zero-knowledge (host
               transcript, then hybrid.prove_zk), then in SNARK mode: the
               multiply kernel's launch sizes by field, kernel == plain at
@@ -174,6 +182,15 @@ def phase_device(rec: dict) -> None:
     log(f"[device] nvidia-smi: {rec['smi']}")
 
 
+# What ptxas reported for each kernel before K3 and K4 were redesigned
+# (PERF.md, section 6): kernels 1 and 2 must compile as they did then.
+PTXAS_EARLIER = {"field_mul": "83 and 66 registers, no spills, 45,072 B shared",
+                 "sumcheck_round": "80 registers, 120 B stack, no spills, 28,364 B shared",
+                 "keccak": "26 registers, no spills, 440 B shared (one warp a state in shared "
+                           "memory)",
+                 "ristretto_encode": "126 registers, no spills"}
+
+
 def phase_build(rec: dict) -> None:
     from otti_tpu_torch import _build
 
@@ -184,6 +201,11 @@ def phase_build(rec: dict) -> None:
     for name, text in _build.PTXAS_LOGS.items():
         for line in _build.ptxas_summary(text):
             log(f"[build] {name} {line}")
+            regs = re.search(r"Used (\d+) registers", line)
+            spills = re.search(r"(\d+) bytes spill stores", line)
+            if (regs and int(regs.group(1)) > 128) or (spills and int(spills.group(1))):
+                raise AssertionError(f"{name}: over 128 registers or spilling: {line}")
+        log(f"[build] {name} earlier: {PTXAS_EARLIER[name]}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(cuobjdump):
         log("[build] cuobjdump not found: no SASS counts")
@@ -800,8 +822,11 @@ KECCAK_OPS = 2 * 24 * (20 + 5 * 4 + 25 + 24 * 3 + 25 * 3 + 1)
 # BASE multiplies of one ristretto encoding (csrc/ristretto.cuh): u1, u2,
 # u2^2, u1 u2^2; v^2, v^3, v3^2, v^7; the chain (251 squarings, 11
 # multiplies); v3 * chain, r^2, v r^2, -u i, r i; den1, den2, den1 den2,
-# * T, ix, iy, enchanted, T z_inv, Xr z_inv, s.
+# * T, ix, iy, enchanted, T z_inv, Xr z_inv, s.  The bound counts each as a
+# full multiply (WIDE_MULS["base"]): the least time for the function,
+# whatever squaring trick an implementation uses.
 ENCODE_MULS = 4 + 4 + 262 + 5 + 10
+ENCODE_SQUARES = 255  # of those, squarings: u2^2, v^2, v3^2, r^2 and the chain's 251
 
 
 def ops_bound(n_ops: float, n_bytes: float) -> tuple:
@@ -812,10 +837,225 @@ def ops_bound(n_ops: float, n_bytes: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _dfs_kernels(rec: dict) -> None:
-    """K3, K4 and kernel 2 fed a challenge from device memory, each against
-    its plain version (and K3, K4 against the host library), bit for bit."""
-    from otti_tpu_torch import native
+# Measurement probes on ristretto.cuh and keccak.cuh (not a kernel of any
+# path): an empty kernel, one square between a load and a store (its SASS
+# is counted), chains of dependent squarings and multiplies in one thread
+# and of permutations in one warp, whose time a step is that step's
+# critical path.
+PROBE_CU = r"""
+#include "ristretto.cuh"
+#include "keccak.cuh"
+
+__device__ __forceinline__ Fe ld(const uint32_t* p) {
+  Fe a;
+  for (int i = 0; i < 8; ++i) a.w[i] = p[i];
+  return a;
+}
+__device__ __forceinline__ void st(uint32_t* p, const Fe& a) {
+  for (int i = 0; i < 8; ++i) p[i] = a.w[i];
+}
+extern "C" __global__ void probe_empty() {}
+extern "C" __global__ void probe_io(uint32_t* x) { st(x, ld(x)); }
+extern "C" __global__ void probe_sq_full(uint32_t* x) {
+  const Fe a = ld(x);
+  st(x, fe_mul<FIELD_BASE>(a, a));
+}
+extern "C" __global__ void probe_sq_loose(uint32_t* x) { st(x, fe_sq_loose(ld(x))); }
+extern "C" __global__ void probe_mul_loose(uint32_t* x) { st(x, fe_mul_loose(ld(x), ld(x + 8))); }
+// OP 0: a = a^2 (fe_mul), 1: a = a^2 (fe_sq_loose), 2: a = a b (fe_mul), 3: a = a b (fe_mul_loose)
+template <int OP>
+__global__ void probe_chain(uint32_t* x, int n, int reps) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe a = ld(x + 16 * i);
+  const Fe b = ld(x + 16 * i + 8);
+#pragma unroll 4
+  for (int r = 0; r < reps; ++r)
+    a = OP == 0 ? fe_mul<FIELD_BASE>(a, a) : OP == 1 ? fe_sq_loose(a)
+      : OP == 2 ? fe_mul<FIELD_BASE>(a, b) : fe_mul_loose(a, b);
+  st(x + 16 * i, fe_canon<FIELD_BASE>(a));
+}
+__global__ void probe_keccak_chain(uint64_t* s, int reps) {  // one warp, one state
+  const int lane = threadIdx.x & 31, t = lane < KECCAK_LANES ? lane : 0;
+  KeccakWarp w;
+  w.src = keccak_sources(t);
+  w.t = t;
+  uint64_t a = s[t];
+  for (int r = 0; r < reps; ++r) a = keccak_rounds(w, a);
+  if (lane < KECCAK_LANES) s[t] = a;
+}
+// The alternative to K3's one warp a state: one thread a state, the 25 lanes
+// in registers, pi a renaming (the rounds written out), the pad in the launch.
+__device__ __forceinline__ uint64_t rl(uint64_t v, int n) {
+  return n ? (v << n) | (v >> (64 - n)) : v;
+}
+__global__ void probe_keccak_thread(uint64_t* st, long long n, int pos, int pos_begin) {
+  const long long i = (long long)blockIdx.x * 32 + threadIdx.x;
+  if (i >= n) return;
+  uint64_t* s = st + 25 * i;
+  uint64_t A[25], B[25], C[5], D[5];
+#pragma unroll
+  for (int l = 0; l < 25; ++l) A[l] = s[l] ^ strobe_pad_lane(l, pos, pos_begin);
+  const int rot[25] = {0, 1, 62, 28, 27, 36, 44, 6, 55, 20, 3, 10, 43, 25, 39,
+                       41, 45, 15, 21, 8, 18, 2, 61, 56, 14};
+#pragma unroll
+  for (int r = 0; r < 24; ++r) {
+#pragma unroll
+    for (int x = 0; x < 5; ++x) C[x] = A[x] ^ A[x + 5] ^ A[x + 10] ^ A[x + 15] ^ A[x + 20];
+#pragma unroll
+    for (int x = 0; x < 5; ++x) D[x] = C[(x + 4) % 5] ^ rl(C[(x + 1) % 5], 1);
+#pragma unroll
+    for (int l = 0; l < 25; ++l)  // lane (x, y) goes to (y, 2x + 3y)
+      B[l / 5 + 5 * ((2 * (l % 5) + 3 * (l / 5)) % 5)] = rl(A[l] ^ D[l % 5], rot[l]);
+#pragma unroll
+    for (int l = 0; l < 25; ++l)
+      A[l] = B[l] ^ (~B[5 * (l / 5) + (l + 1) % 5] & B[5 * (l / 5) + (l + 2) % 5]);
+    A[0] ^= KECCAK_RC[r];
+  }
+#pragma unroll
+  for (int l = 0; l < 25; ++l) s[l] = A[l];
+}
+extern "C" int probe_keccak_thread_launch(void* st, long long n, int pos, int pos_begin,
+                                          void* stream) {
+  probe_keccak_thread<<<(unsigned)((n + 31) / 32), 32, 0, (cudaStream_t)stream>>>(
+      (uint64_t*)st, n, pos, pos_begin);
+  return (int)cudaGetLastError();
+}
+extern "C" int probe_init(const int32_t* consts) {
+  const int err = set_field_consts(consts);
+  return err ? err : set_ristretto_consts(reinterpret_cast<const uint32_t*>(consts) + 26);
+}
+// which 0: the empty kernel; 1: probe_chain<op> over n threads; 2: the Keccak chain
+extern "C" int probe_launch(int which, void* x, int n, int reps, int op, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  uint32_t* p = (uint32_t*)x;
+  const int blocks = (n + 31) / 32;
+  if (which == 0) probe_empty<<<1, 32, 0, s>>>();
+  else if (which == 2) probe_keccak_chain<<<1, 32, 0, s>>>((uint64_t*)x, reps);
+  else if (op == 0) probe_chain<0><<<blocks, 32, 0, s>>>(p, n, reps);
+  else if (op == 1) probe_chain<1><<<blocks, 32, 0, s>>>(p, n, reps);
+  else if (op == 2) probe_chain<2><<<blocks, 32, 0, s>>>(p, n, reps);
+  else probe_chain<3><<<blocks, 32, 0, s>>>(p, n, reps);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _build_probes() -> dict:
+    """PROBE_CU compiled twice, side by side: with the device's PTX carry
+    chains and with the portable C++ of the same arithmetic (OTTI_NO_PTX).
+    {variant: (ctypes library, {function: SASS instructions})}."""
+    import ctypes
+
+    from otti_tpu_torch import _build
+
+    nvcc = _build._nvcc()
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    tmp = tempfile.mkdtemp(prefix="otti_probe_")
+    src = os.path.join(tmp, "probe.cu")
+    with open(src, "w") as f:
+        f.write(PROBE_CU)
+    procs = {}
+    for variant, extra in (("ptx", []), ("portable", ["-DOTTI_NO_PTX"])):
+        lib = os.path.join(tmp, f"probe_{variant}.so")
+        procs[variant] = (lib, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR, *extra, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    out = {}
+    fn_re = re.compile(r"Function : (\w+)")
+    op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+    for variant, (lib, proc) in procs.items():
+        o, e = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"probe build ({variant}) failed:\n{o}\n{e}")
+        dll = ctypes.CDLL(lib)
+        dll.probe_init.argtypes = [ctypes.c_void_p]
+        dll.probe_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+        dll.probe_keccak_thread_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                                                   ctypes.c_int, ctypes.c_void_p]
+        consts = np.ascontiguousarray(_build.ristretto_consts())
+        _build.check(dll.probe_init(consts.ctypes.data), "probe_init")
+        sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                              timeout=120).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = fn_re.search(line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn:
+                m = op_re.search(line)
+                if m and m.group(1) != "NOP":
+                    counts[fn] += 1
+        out[variant] = (dll, counts)
+    return out
+
+
+def _probe_chains(rec: dict) -> dict:
+    """The probes' numbers: SASS instructions of one square (old and new),
+    ns a step of each dependent chain in one thread (and a square at 4,096
+    threads), one permutation's chain, and the empty kernel's time."""
+    from otti_tpu_torch import _build
+
+    probes = _build_probes()
+    res = {}
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    for variant, (dll, counts) in probes.items():
+        io = counts.get("probe_io", 0)
+        sass = {k: counts.get(k, 0) - io for k in ("probe_sq_full", "probe_sq_loose",
+                                                   "probe_mul_loose")}
+        log(f"[device_fs:probe:{variant}] SASS instructions beyond the load and store "
+            f"({io}): one fe_mul square {sass['probe_sq_full']}, one fe_sq_loose "
+            f"{sass['probe_sq_loose']}, one fe_mul_loose {sass['probe_mul_loose']}")
+        rng = np.random.default_rng(5)
+        reps = 2048
+        chain = {}
+        for n in (1, 4096):
+            x0 = torch.from_numpy(rng.integers(0, 2**32, (n, 16), dtype=np.uint32)
+                                  .view(np.int32)).cuda()
+            outs = {}
+            for op in (0, 1, 2, 3) if n == 1 else (0, 1):
+                x = x0.clone()
+                run = lambda: _build.check(  # noqa: E731
+                    dll.probe_launch(1, x.data_ptr(), n, reps, op, stream()), "probe_chain")
+                run()
+                torch.cuda.synchronize()
+                outs[op] = x[:, :8].clone()
+                chain[(n, op)] = cuda_ms(run, 5) * 1e6 / reps
+            if not (torch.equal(outs[0], outs[1]) and (n > 1 or torch.equal(outs[2], outs[3]))):
+                raise AssertionError(f"probe ({variant}): loose and full chains differ at n={n}")
+        st = torch.from_numpy(rng.integers(0, 256, (1, 200), dtype=np.uint8)).cuda()
+        perm_ns = cuda_ms(lambda: dll.probe_launch(2, st.data_ptr(), 1, 512, 0, stream()), 5) \
+            * 1e6 / 512
+        empty_ms = cuda_ms(lambda: dll.probe_launch(0, 0, 1, 0, 0, stream()), 200,
+                           queue_ahead=True)
+        res[variant] = {"sass": sass, "sass_io": io, "perm_ns": perm_ns, "empty_ms": empty_ms,
+                        "sq_full_ns": chain[(1, 0)], "sq_loose_ns": chain[(1, 1)],
+                        "mul_full_ns": chain[(1, 2)], "mul_loose_ns": chain[(1, 3)],
+                        "sq_full_ns_4096": chain[(4096, 0)],
+                        "sq_loose_ns_4096": chain[(4096, 1)]}
+        log(f"[device_fs:probe:{variant}] one thread, a step of a chain of {reps}: square "
+            f"{chain[(1, 0)]:.2f} ns by fe_mul, {chain[(1, 1)]:.2f} ns by fe_sq_loose; multiply "
+            f"{chain[(1, 2)]:.2f} ns by fe_mul, {chain[(1, 3)]:.2f} ns by fe_mul_loose; 4,096 "
+            f"threads: square {chain[(4096, 0)]:.3f} / {chain[(4096, 1)]:.3f} ns a step; one "
+            f"warp's Keccak-f[1600] {perm_ns:.1f} ns; empty kernel {empty_ms:.5f} ms")
+    rec["probe"] = res
+    return {**res["ptx"], "dll": probes["ptx"][0]}
+
+
+def _timed(fn, plain, reps: int = 50, plain_reps: int = 2) -> tuple:
+    """(kernel ms behind the spin kernel, through the wrapper, plain ms)."""
+    return (cuda_ms(fn, reps, queue_ahead=True), cuda_ms(fn, reps), cuda_ms(plain, plain_reps))
+
+
+def _dfs_kernels(rec: dict, rows: int) -> None:
+    """K3 (with and without the pad), K4 at the main path's sizes (``rows``:
+    the optdigits witness commitment's) and kernel 2 fed a challenge from
+    device memory, each against its plain version (and K3, K4 against the
+    host library), bit for bit; their times beside the bound and the
+    critical-path floor."""
+    from otti_tpu_torch import _build, native
     from otti_tpu_torch.curve import edwards as E
     from otti_tpu_torch.curve import ristretto
     from otti_tpu_torch.field.ops import SCALAR, ints_to_limbs
@@ -824,44 +1064,64 @@ def _dfs_kernels(rec: dict) -> None:
     from otti_tpu_torch.spartan.nizk import GENS_LABEL
     from otti_tpu_torch.transcript import device as D
 
+    probe = _probe_chains(rec)
     rng = np.random.default_rng(9)
-    # ---- K3: a chain of 64 permutations of one state, then 4,096 states
+
+    def host_f(state: bytes, pos: int, pos_begin: int) -> bytes:
+        h = bytearray(state)
+        if pos >= 0:
+            h[pos] ^= pos_begin
+            h[pos + 1] ^= 0x04
+            h[D._RATE + 1] ^= 0x80
+        native.keccak_f1600(h)
+        return bytes(h)
+
+    # ---- K3: a chain of 64 permutations of one state, every other one padded
+    # at a moving position (the transcript's calls), then 4,096 states
     st = torch.from_numpy(rng.integers(0, 256, (1, 200), dtype=np.uint8)).cuda()
-    k_st, p_st, host = st.clone(), st.clone(), bytearray(st.cpu().numpy().tobytes())
+    k_st, p_st, host = st.clone(), st.clone(), st.cpu().numpy().tobytes()
     for i in range(64):
-        D.keccak_f1600_cuda(k_st)
-        p_st = D.keccak_f1600_plain(p_st)
-        if i < 4:
-            native.keccak_f1600(host)
-            if bytes(k_st.cpu().numpy().tobytes()) != bytes(host):
+        pos, pos_begin = (-1, 0) if i % 2 == 0 else ((37 * i) % (D._RATE + 1), (11 * i) % 256)
+        D.keccak_f1600_cuda(k_st, pos, pos_begin)
+        p_st = D.keccak_f1600_plain(p_st, pos, pos_begin)
+        if i < 8:
+            host = host_f(host, pos, pos_begin)
+            if k_st.cpu().numpy().tobytes() != host:
                 raise AssertionError(f"K3 differs from the host permutation at step {i}")
         if not torch.equal(k_st, p_st):
             raise AssertionError(f"K3 differs from its plain version at step {i} of the chain")
     big = torch.from_numpy(rng.integers(0, 256, (4096, 200), dtype=np.uint8)).cuda()
-    k_big = D.keccak_f1600_cuda(big.clone())
-    if not torch.equal(k_big, D.keccak_f1600_plain(big)):
-        raise AssertionError("K3 differs from its plain version on 4,096 states")
-    for i in (0, 1, 4095):
-        h = bytearray(big[i].cpu().numpy().tobytes())
-        native.keccak_f1600(h)
-        if bytes(k_big[i].cpu().numpy().tobytes()) != bytes(h):
-            raise AssertionError(f"K3 differs from the host permutation at state {i}")
-    one = st.clone()
-    times = {}
-    for b, x in ((1, one), (4096, big.clone())):
-        t_k = cuda_ms(lambda: D.keccak_f1600_cuda(x), 50, queue_ahead=True)
-        t_w = cuda_ms(lambda: D.keccak_f1600_cuda(x), 50)
-        t_p = cuda_ms(lambda: D.keccak_f1600_plain(x), 3)
+    for pos, pos_begin in ((-1, 0), (166, 77)):
+        k_big = D.keccak_f1600_cuda(big.clone(), pos, pos_begin)
+        if not torch.equal(k_big, D.keccak_f1600_plain(big, pos, pos_begin)):
+            raise AssertionError(f"K3 differs from its plain version on 4,096 states (pad {pos})")
+        for i in (0, 1, 4095):
+            if k_big[i].cpu().numpy().tobytes() != host_f(big[i].cpu().numpy().tobytes(), pos,
+                                                          pos_begin):
+                raise AssertionError(f"K3 differs from the host permutation at state {i}")
+    floor3 = probe["empty_ms"] + probe["perm_ns"] * 1e-6
+    sizes = {}
+    for tag, b, pad in (("one", 1, (-1, 0)), ("one_pad", 1, (64, 21)), ("b4096", 4096, (-1, 0))):
+        x = st.clone() if b == 1 else big.clone()
+        t_k, t_w, t_p = _timed(lambda: D.keccak_f1600_cuda(x, *pad),
+                               lambda: D.keccak_f1600_plain(x, *pad), plain_reps=3)
         b_ms, b_by = ops_bound(b * KECCAK_OPS, b * 400)
-        times[b] = (t_k, t_p, t_w, b_ms, b_by)
-        log(f"[device_fs] K3 B={b}: kernel {t_k:.5f} ms (through the wrapper {t_w:.5f} ms), "
-            f"plain {t_p:.4f} ms, bound {b_ms:.6f} ms by {b_by}")
-    rec["keccak"] = {"max_abs_err": 0, "ms": times[1][0], "plain_ms": times[1][1],
-                     "wrapper_ms": times[1][2], "bound_ms": times[1][3], "bound_by": times[1][4],
-                     "b4096": {"ms": times[4096][0], "plain_ms": times[4096][1],
-                               "bound_ms": times[4096][3], "bound_by": times[4096][4]}}
-    log("[device_fs] K3 == plain over a chain of 64 permutations and on 4,096 states; "
-        "== the host library on 7 states")
+        y = x.clone()  # the alternative design, one thread a state (PROBE_CU)
+        alt = lambda: _build.check(probe["dll"].probe_keccak_thread_launch(  # noqa: E731
+            y.data_ptr(), b, *pad, torch.cuda.current_stream().cuda_stream), "probe_keccak_thread")
+        alt()
+        if not torch.equal(y, D.keccak_f1600_plain(x, *pad)):
+            raise AssertionError("the one-thread Keccak probe differs from the plain version")
+        t_alt = cuda_ms(alt, 50, queue_ahead=True)
+        sizes[tag] = {"ms": t_k, "wrapper_ms": t_w, "plain_ms": t_p, "bound_ms": b_ms,
+                      "bound_by": b_by, "floor_ms": floor3, "one_thread_ms": t_alt}
+        log(f"[device_fs] K3 {tag} (B={b}, pad {pad}): kernel {t_k:.5f} ms (through the "
+            f"wrapper {t_w:.5f} ms), plain {t_p:.4f} ms, bound {b_ms:.7f} ms by {b_by}; "
+            f"critical-path floor {floor3:.5f} ms (empty kernel + one warp's permutation); one "
+            f"thread a state instead of one warp: {t_alt:.5f} ms")
+    rec["keccak"] = {"max_abs_err": 0, **sizes["one_pad"], "sizes": sizes}
+    log("[device_fs] K3 == plain over a chain of 64 permutations (32 padded) and on 4,096 "
+        "states with and without the pad; == the host library on 14 states")
 
     # ---- K4: the identity, comb-table points (z = 1) and device sums
     tbl = pippenger.fixed_base_tables(4, GENS_LABEL, True, "cuda")["p"]
@@ -875,8 +1135,12 @@ def _dfs_kernels(rec: dict) -> None:
         ident = E.identity((1,), "cuda")
         return E.tree_map(lambda x, y: torch.cat([y, x[1:]]).contiguous(), pts, ident)
 
-    times = {}
-    for n in (1, 4, 4096):
+    # the chain: the squarings, the other multiplies (fe_mul_loose's chain step
+    # stands for each; the few canonicalisations are left out)
+    floor4 = probe["empty_ms"] + 1e-6 * (ENCODE_SQUARES * probe["sq_loose_ns"]
+                                         + (ENCODE_MULS - ENCODE_SQUARES) * probe["mul_loose_ns"])
+    sizes = {}
+    for n in sorted({1, 2, 11, rows, 4096}):
         pts = points(n)
         got, want = ristretto.encode_cuda(pts), ristretto.encode_plain(pts)
         if not torch.equal(got, want):
@@ -885,23 +1149,19 @@ def _dfs_kernels(rec: dict) -> None:
         host = [native.ristretto_encode_host(q) for q in refs]
         if [bytes(r.tolist()) for r in got[:64].cpu()] != host:
             raise AssertionError(f"K4 differs from the host library at n={n}")
-        if n == 1 and host[0] != bytes(32):
+        if host[0] != bytes(32):
             raise AssertionError("the identity does not encode to 32 zero bytes")
-        if n in (4, 4096):
-            t_k = cuda_ms(lambda: ristretto.encode_cuda(pts), 30, queue_ahead=True)
-            t_w = cuda_ms(lambda: ristretto.encode_cuda(pts), 30)
-            t_p = cuda_ms(lambda: ristretto.encode_plain(pts), 2)
-            b_ms, b_by = ops_bound(n * ENCODE_MULS * 2 * WIDE_MULS["base"], n * (4 * ROW_BYTES + 32))
-            times[n] = (t_k, t_p, t_w, b_ms, b_by)
-            log(f"[device_fs] K4 n={n}: kernel {t_k:.5f} ms (through the wrapper {t_w:.5f} ms), "
-                f"plain {t_p:.3f} ms, bound {b_ms:.6f} ms by {b_by}")
-    rec["ristretto"] = {"max_abs_err": 0, "ms": times[4][0], "plain_ms": times[4][1],
-                        "wrapper_ms": times[4][2], "bound_ms": times[4][3],
-                        "bound_by": times[4][4],
-                        "n4096": {"ms": times[4096][0], "plain_ms": times[4096][1],
-                                  "bound_ms": times[4096][3], "bound_by": times[4096][4]}}
-    log("[device_fs] K4 == plain == host library at n = 1, 4, 4,096 (identity, comb points, "
-        "device sums)")
+        t_k, t_w, t_p = _timed(lambda: ristretto.encode_cuda(pts),
+                               lambda: ristretto.encode_plain(pts), reps=30)
+        b_ms, b_by = ops_bound(n * ENCODE_MULS * 2 * WIDE_MULS["base"], n * (4 * ROW_BYTES + 32))
+        sizes[f"n{n}"] = {"ms": t_k, "wrapper_ms": t_w, "plain_ms": t_p, "bound_ms": b_ms,
+                          "bound_by": b_by, "floor_ms": floor4}
+        log(f"[device_fs] K4 n={n}{' (witness rows)' if n == rows else ''}: kernel {t_k:.5f} ms "
+            f"(through the wrapper {t_w:.5f} ms), plain {t_p:.3f} ms, bound {b_ms:.6f} ms by "
+            f"{b_by}; critical-path floor {floor4:.5f} ms")
+    rec["ristretto"] = {"max_abs_err": 0, **sizes["n2"], "sizes": sizes}
+    log(f"[device_fs] K4 == plain == host library at n = 1, 2, 11, {rows}, 4,096 (identity, "
+        "comb points, device sums)")
 
     # ---- kernel 2 with the challenge in device memory == with it as an int
     M = SCALAR.modulus
@@ -961,7 +1221,7 @@ def _dfs_instances(tmp: str) -> dict:
     return out
 
 
-def _dfs_proofs(rec: dict) -> None:
+def _dfs_proofs(rec: dict, insts: dict, tmp: str) -> None:
     """The device-transcript provers against the host-transcript ones, byte
     for byte with one blind seed, through the CLI's choice; verification,
     tampering, the sync check, the launch counts, cold and warm times."""
@@ -969,106 +1229,165 @@ def _dfs_proofs(rec: dict) -> None:
     from otti_tpu_torch.spartan import fused, hybrid, nizk, serial, zkfused, zknizk
 
     seed = bytes(range(32))
-    with tempfile.TemporaryDirectory() as tmp:
-        insts = _dfs_instances(tmp)
-        for name, (shape, vars_, inputs) in insts.items():
-            dev = shape.to_device("cuda")
-            prove_zk, verify_zk, classic = cli._provers(shape, True, "otti")
-            want = {"optdigits": hybrid.prove_zk, "iris": zkfused.prove,
-                    "lp117x225": hybrid.prove_zk}[name]
-            if prove_zk is not want or classic:
-                raise AssertionError(f"{name}: the CLI chose {prove_zk.__module__}")
-            times = {}
-            # "first": the first prove of this shape in the process only when the
-            # phase runs alone (phase main proves optdigits and iris before it)
-            for capture in ("first", "again"):
-                for tag, fn in (("device_fs", prove_zk), ("classic", zknizk.prove)):
-                    metrics.reset()
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    proof = fn(dev, vars_, inputs, seed=seed)
-                    torch.cuda.synchronize()
-                    t_prove = time.perf_counter() - t0
-                    snap = {k: round(v, 4) for k, v in metrics.snapshot().items()}
-                    t0 = time.perf_counter()
-                    ok = verify_zk(dev, inputs, proof)
-                    t_verify = time.perf_counter() - t0
-                    if not ok:
-                        raise AssertionError(f"{name} {tag} zk proof does not verify")
-                    times[(tag, capture)] = (serial.dumps(proof), t_prove, t_verify)
-                    log(f"[device_fs:{name}] zk {tag} {capture}: prove {t_prove:.4f}s verify "
-                        f"{t_verify:.4f}s, {shape.num_cons} constraints, proof "
-                        f"{proof.size_bytes()} B; prover {json.dumps(snap)}")
-                    rec.setdefault("device_fs", {})[f"{name}:zk:{tag}:{capture}"] = {
-                        "prove_s": t_prove, "verify_s": t_verify, **snap}
-            dfs = {times[("device_fs", c)][0] for c in ("first", "again")}
-            cls = {times[("classic", c)][0] for c in ("first", "again")}
-            if len(dfs) != 1 or dfs != cls:
-                raise AssertionError(f"{name}: device-transcript and classic zk proofs differ")
-            proof = serial.loads(times[("device_fs", "again")][0])
-            bad = dataclasses.replace(proof, bullet=dataclasses.replace(
-                proof.bullet, z1=(proof.bullet.z1 + 1) % zknizk.L))
-            if verify_zk(dev, inputs, bad):
-                raise AssertionError(f"{name}: a zk proof with a tampered bullet.z1 verified")
-            plain = serial.dumps(nizk.prove(dev, vars_, inputs))
-            for tag, fn in (("hybrid", hybrid.prove), ("fused", fused.prove)):
-                p = fn(dev, vars_, inputs)
-                if serial.dumps(p) != plain or not nizk.verify(dev, inputs, p):
-                    raise AssertionError(f"{name}: {tag}.prove differs from nizk.prove")
-            # no host sync between the two transfers (warm: tables and constants
-            # are there), and the launches of that warm zk prove
-            before = dict(_build.LAUNCHES)
-            os.environ["OTTI_SYNC_CHECK"] = "1"
-            try:
-                prove_zk(dev, vars_, inputs, seed=seed)
+    for name, (shape, vars_, inputs) in insts.items():
+        dev = shape.to_device("cuda")
+        prove_zk, verify_zk, classic = cli._provers(shape, True, "otti")
+        want = {"optdigits": hybrid.prove_zk, "iris": zkfused.prove,
+                "lp117x225": hybrid.prove_zk}[name]
+        if prove_zk is not want or classic:
+            raise AssertionError(f"{name}: the CLI chose {prove_zk.__module__}")
+        times = {}
+        # "first": the first prove of this shape in the process only when the
+        # phase runs alone (phase main proves optdigits and iris before it)
+        for capture in ("first", "again"):
+            for tag, fn in (("device_fs", prove_zk), ("classic", zknizk.prove)):
+                metrics.reset()
                 torch.cuda.synchronize()
-                per = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-                cli._provers(shape, False, "otti")[0](dev, vars_, inputs)
+                t0 = time.perf_counter()
+                proof = fn(dev, vars_, inputs, seed=seed)
                 torch.cuda.synchronize()
-            finally:
-                del os.environ["OTTI_SYNC_CHECK"]
-            rec.setdefault("launches_per_prove", {})[f"zk-device_fs:{name}"] = per
-            log(f"[device_fs:{name}] device-transcript and classic zk proofs byte-equal "
-                f"(seeded), fused and hybrid plain == nizk, tampered bullet.z1 rejected, "
-                f"no host sync between the two transfers (OTTI_SYNC_CHECK, zk and plain); "
-                f"launches of a warm zk prove {per}")
-            if name == "optdigits":  # stage by stage, each waited for (no overlap)
-                os.environ["OTTI_SYNC_METRICS"] = "1"
-                try:
-                    metrics.reset()
-                    prove_zk(dev, vars_, inputs, seed=seed)
-                    log(f"[device_fs:{name}] warm zk prove with OTTI_SYNC_METRICS=1: "
-                        + json.dumps({k: round(v, 4) for k, v in metrics.snapshot().items()}))
-                finally:
-                    del os.environ["OTTI_SYNC_METRICS"]
-
-        # through the CLI under OTTI_CLASSIC=1, cold then warm (phase main drives
-        # the default, the device transcript), then run_lp by default
-        cfg = os.path.join(tmp, "smoke.json")
-        _config(cfg)
-        os.environ["OTTI_CLASSIC"] = "1"
+                t_prove = time.perf_counter() - t0
+                snap = {k: round(v, 4) for k, v in metrics.snapshot().items()}
+                t0 = time.perf_counter()
+                ok = verify_zk(dev, inputs, proof)
+                t_verify = time.perf_counter() - t0
+                if not ok:
+                    raise AssertionError(f"{name} {tag} zk proof does not verify")
+                times[(tag, capture)] = (serial.dumps(proof), t_prove, t_verify)
+                log(f"[device_fs:{name}] zk {tag} {capture}: prove {t_prove:.4f}s verify "
+                    f"{t_verify:.4f}s, {shape.num_cons} constraints, proof "
+                    f"{proof.size_bytes()} B; prover {json.dumps(snap)}")
+                rec.setdefault("device_fs", {})[f"{name}:zk:{tag}:{capture}"] = {
+                    "prove_s": t_prove, "verify_s": t_verify, **snap}
+        dfs = {times[("device_fs", c)][0] for c in ("first", "again")}
+        cls = {times[("classic", c)][0] for c in ("first", "again")}
+        if len(dfs) != 1 or dfs != cls:
+            raise AssertionError(f"{name}: device-transcript and classic zk proofs differ")
+        proof = serial.loads(times[("device_fs", "again")][0])
+        bad = dataclasses.replace(proof, bullet=dataclasses.replace(
+            proof.bullet, z1=(proof.bullet.z1 + 1) % zknizk.L))
+        if verify_zk(dev, inputs, bad):
+            raise AssertionError(f"{name}: a zk proof with a tampered bullet.z1 verified")
+        plain = serial.dumps(nizk.prove(dev, vars_, inputs))
+        for tag, fn in (("hybrid", hybrid.prove), ("fused", fused.prove)):
+            p = fn(dev, vars_, inputs)
+            if serial.dumps(p) != plain or not nizk.verify(dev, inputs, p):
+                raise AssertionError(f"{name}: {tag}.prove differs from nizk.prove")
+        # no host sync between the two transfers (warm: tables and constants
+        # are there), and the launches of that warm zk prove
+        before = dict(_build.LAUNCHES)
+        os.environ["OTTI_SYNC_CHECK"] = "1"
         try:
-            _drive_run_sgd(rec, "classic", cfg, os.path.join(tmp, "cls"), ("optdigits", "iris"),
-                           "zk-classic", kernels=HOST_FS_KERNELS, zk=True)
+            prove_zk(dev, vars_, inputs, seed=seed)
+            torch.cuda.synchronize()
+            per = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+            cli._provers(shape, False, "otti")[0](dev, vars_, inputs)
+            torch.cuda.synchronize()
         finally:
-            del os.environ["OTTI_CLASSIC"]
-        lp = os.path.join(tmp, "gen117x225.mps")
-        _zero_launches()
-        for capture in ("cold", "warm"):
-            ok, _ = _captured(f"device_fs:lp:{capture}", cli.run_lp, [lp], os.path.join(tmp, "lp"),
-                              zk=True)
-            if not ok:
-                raise AssertionError(f"LP 117 x 225 ({capture}) did not verify")
-            _check_meta(f"device_fs:lp:{capture}",
-                        os.path.join(tmp, "lp", "LP", "gen117x225.mps.meta.json"), "zk")
-        rec["launches_device_fs"] = _read_launches("device_fs:lp")
+            del os.environ["OTTI_SYNC_CHECK"]
+        rec.setdefault("launches_per_prove", {})[f"zk-device_fs:{name}"] = per
+        log(f"[device_fs:{name}] device-transcript and classic zk proofs byte-equal "
+            f"(seeded), fused and hybrid plain == nizk, tampered bullet.z1 rejected, "
+            f"no host sync between the two transfers (OTTI_SYNC_CHECK, zk and plain); "
+            f"launches of a warm zk prove {per}")
+        if name == "optdigits":  # stage by stage, each waited for (no overlap)
+            os.environ["OTTI_SYNC_METRICS"] = "1"
+            try:
+                metrics.reset()
+                prove_zk(dev, vars_, inputs, seed=seed)
+                log(f"[device_fs:{name}] warm zk prove with OTTI_SYNC_METRICS=1: "
+                    + json.dumps({k: round(v, 4) for k, v in metrics.snapshot().items()}))
+            finally:
+                del os.environ["OTTI_SYNC_METRICS"]
+
+    # through the CLI under OTTI_CLASSIC=1, cold then warm (phase main drives
+    # the default, the device transcript), then run_lp by default
+    cfg = os.path.join(tmp, "smoke.json")
+    _config(cfg)
+    os.environ["OTTI_CLASSIC"] = "1"
+    try:
+        _drive_run_sgd(rec, "classic", cfg, os.path.join(tmp, "cls"), ("optdigits", "iris"),
+                       "zk-classic", kernels=HOST_FS_KERNELS, zk=True)
+    finally:
+        del os.environ["OTTI_CLASSIC"]
+    lp = os.path.join(tmp, "gen117x225.mps")
+    _zero_launches()
+    for capture in ("cold", "warm"):
+        ok, _ = _captured(f"device_fs:lp:{capture}", cli.run_lp, [lp], os.path.join(tmp, "lp"),
+                          zk=True)
+        if not ok:
+            raise AssertionError(f"LP 117 x 225 ({capture}) did not verify")
+        _check_meta(f"device_fs:lp:{capture}",
+                    os.path.join(tmp, "lp", "LP", "gen117x225.mps.meta.json"), "zk")
+    rec["launches_device_fs"] = _read_launches("device_fs:lp")
+
+
+def _dfs_fused_pad(rec: dict, inst: tuple) -> None:
+    """A warm optdigits zk prove by the CLI's pick under torch.profiler,
+    with the STROBE pad applied as a torch XOR before each permutation (as
+    DeviceStrobe._run_f did before the pad went into K3) and fused into K3:
+    device launches, K3's and K4's device time, the two proofs byte-equal."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from otti_tpu_torch import cli
+    from otti_tpu_torch.spartan import serial
+    from otti_tpu_torch.transcript import device as D
+
+    shape, vars_, inputs = inst
+    dev = shape.to_device("cuda")
+    prove = cli._provers(shape, True, "otti")[0]
+    seed = bytes(range(32))
+
+    def run_f_unfused(self):
+        self.state ^= D._pad_bytes(self.pos, self.pos_begin, self.state.device)
+        D.keccak_f1600_bytes(self.state)
+        self.pos = 0
+        self.pos_begin = 0
+
+    run_f_fused = D.DeviceStrobe._run_f
+    proofs, res = {}, {}
+    try:
+        for tag, run_f in (("unfused", run_f_unfused), ("fused", run_f_fused)):
+            D.DeviceStrobe._run_f = run_f
+            prove(dev, vars_, inputs, seed=seed)  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                proofs[tag] = serial.dumps(prove(dev, vars_, inputs, seed=seed))
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                      and getattr(e, "device_time_total", 0) > 0]
+            own = {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3
+                   for k in ("keccak_kernel", "ristretto_encode_kernel")}
+            res[tag] = {"device_launches": sum(e.count for e in events),
+                        "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+                        "k3_ms": own["keccak_kernel"], "k4_ms": own["ristretto_encode_kernel"]}
+            log(f"[device_fs:pad] warm optdigits zk prove, pad {tag}: "
+                f"{res[tag]['device_launches']} device launches, {res[tag]['device_ms']:.1f} ms "
+                f"of device time; K3 {res[tag]['k3_ms']:.3f} ms, K4 {res[tag]['k4_ms']:.3f} ms")
+    finally:
+        D.DeviceStrobe._run_f = run_f_fused
+    if proofs["unfused"] != proofs["fused"]:
+        raise AssertionError("the fused pad changed the optdigits zk proof")
+    rec["fused_pad"] = res
+    fewer = res["unfused"]["device_launches"] - res["fused"]["device_launches"]
+    log(f"[device_fs:pad] fused pad: {fewer} fewer device launches a warm optdigits zk prove, "
+        "proofs byte-equal")
 
 
 def phase_device_fs(rec: dict) -> None:
-    """The device transcript: kernels K3 and K4 and kernel 2's device
-    challenge, then the device-transcript provers the CLI picks by default."""
-    _dfs_kernels(rec)
-    _dfs_proofs(rec)
+    """The device transcript: kernels K3 and K4 (with the measurement
+    probes) and kernel 2's device challenge, then the device-transcript
+    provers the CLI picks by default, then the fused pad's launches."""
+    from otti_tpu_torch.spartan.nizk import _hyrax_dims
+
+    with tempfile.TemporaryDirectory() as tmp:
+        insts = _dfs_instances(tmp)
+        rows = 1 << _hyrax_dims(insts["optdigits"][0].num_vars_padded)[0]
+        log(f"[device_fs] optdigits: witness commitment of {rows} rows")
+        _dfs_kernels(rec, rows)
+        _dfs_proofs(rec, insts, tmp)
+        _dfs_fused_pad(rec, insts["optdigits"])
 
 
 def _profile_prove(rec: dict, tag: str, prove, covered: set, host_ops: bool = True) -> None:
@@ -1248,7 +1567,7 @@ def main(argv=None) -> int:
                             "launches_device_fs":
                                 rec.get("launches_device_fs", {}).get(cname),
                             **{k: v for k, v in rec[key].items()
-                               if k in ("b4096", "n4096", "base", "quad")},
+                               if k in ("base", "quad", "floor_ms", "sizes")},
                             **({"device_challenge": rec["kernel2_device_challenge"]}
                                if key == "kernel2" and "kernel2_device_challenge" in rec
                                else {}),

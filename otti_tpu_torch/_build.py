@@ -58,8 +58,7 @@ _SIGNATURES = {
         "otti_sumcheck_round": [_P, _P, _P, _P, ctypes.c_int, _P, _P, _LL, _LL, _P, _P, _P],
     },
     "keccak": {
-        "otti_keccak_init": [_P],
-        "otti_keccak_f1600": [_P, _LL, _P],
+        "otti_keccak_pad_f1600": [_P, _LL, ctypes.c_int, ctypes.c_int, _P],
     },
     "ristretto_encode": {
         "otti_ristretto_init": [_P],
@@ -107,21 +106,10 @@ def ristretto_consts() -> np.ndarray:
     return np.concatenate([field_consts(), np.array(words, dtype=np.uint32).view(np.int32)])
 
 
-def keccak_consts() -> np.ndarray:
-    """csrc/keccak.cu's KeccakConsts: the 24 round constants (uint64), then
-    the rho/pi gather's 25 sources and 25 rotations (int32), as bytes."""
-    from .transcript.device import PI_ROT, PI_SRC
-    from .transcript.keccak import _RC
-
-    return np.concatenate([
-        np.array(_RC, dtype=np.uint64).view(np.uint8),
-        PI_SRC.astype(np.int32).view(np.uint8), PI_ROT.astype(np.int32).view(np.uint8),
-    ])
-
-
 # source file (without .cu) -> what its init function copies to the device
+# (keccak.cu has no init: its constants are compiled in, csrc/keccak.cuh)
 _INIT_DATA = {"field_mul": field_consts, "sumcheck_round": field_consts,
-              "keccak": keccak_consts, "ristretto_encode": ristretto_consts}
+              "ristretto_encode": ristretto_consts}
 
 
 def _build(jobs: list) -> None:
@@ -175,7 +163,7 @@ def library() -> types.SimpleNamespace:
         fns = types.SimpleNamespace()
         for name, sigs in _SIGNATURES.items():
             lib = ctypes.CDLL(paths[name])
-            consts = np.ascontiguousarray(_INIT_DATA[name]())
+            consts = np.ascontiguousarray(_INIT_DATA[name]()) if name in _INIT_DATA else None
             for fname, args in sigs.items():
                 fn = getattr(lib, fname)
                 fn.argtypes = args

@@ -1,10 +1,11 @@
-// The device arithmetic of field.cuh and ristretto.cuh compiled for the
-// host, so that a CPU test can hold the very code the kernels run against
-// Python integers and the JAX package:
+// The device arithmetic of field.cuh, ristretto.cuh and keccak.cuh compiled
+// for the host, so that a CPU test can hold the very code the kernels run
+// against Python integers, the JAX package and the host library:
 //   g++ -O2 -std=c++17 -shared -fPIC -o libotti_field_host.so host_check.cpp
 // No kernel is built from this file.
 #include "field.cuh"
 #include "ristretto.cuh"
+#include "keccak.cuh"
 
 extern "C" void otti_host_set_consts(const int32_t* consts) {
   set_field_consts(consts);
@@ -53,4 +54,41 @@ extern "C" void otti_host_ristretto_encode(const int32_t* x, const int32_t* y, c
     ristretto_encode_fe(fe_pack(x + o), fe_pack(y + o), fe_pack(z + o), fe_pack(t + o),
                         out + 32 * i);
   }
+}
+
+// Loose BASE arithmetic on 8-word values (no packing): op 0: a * b, op 1:
+// a^2, each in [0, 2^256) and not canonical.
+extern "C" void otti_host_loose(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                                long long n, int op) {
+  for (long long i = 0; i < n; ++i) {
+    Fe x, y;
+    memcpy(x.w, a + OTTI_NW * i, sizeof(x.w));
+    memcpy(y.w, b + OTTI_NW * i, sizeof(y.w));
+    const Fe z = op == 0 ? fe_mul_loose(x, y) : fe_sq_loose(x);
+    memcpy(out + OTTI_NW * i, z.w, sizeof(z.w));
+  }
+}
+
+// Keccak-f[1600] of n 200-byte states in place, STROBE's pad first when
+// pos >= 0 (as otti_keccak_pad_f1600 takes them): keccak.cuh's rounds on the
+// host's warp model.
+extern "C" void otti_host_keccak_pad_f1600(uint8_t* states, long long n, int pos,
+                                           int pos_begin) {
+  const KeccakWarp w;
+  for (long long i = 0; i < n; ++i) {
+    uint64_t lanes[KECCAK_LANES];
+    memcpy(lanes, states + 200 * i, sizeof(lanes));
+    KeccakLanes a;
+    for (int l = 0; l < 32; ++l) a.l[l] = lanes[w.t[l]] ^ strobe_pad_lane(w.t[l], pos, pos_begin);
+    a = keccak_rounds(w, a);
+    memcpy(states + 200 * i, a.l, sizeof(lanes));
+  }
+}
+
+// The tables compiled into keccak.cuh: 24 round constants, the rho+pi
+// sources and rotations.
+extern "C" void otti_host_keccak_tables(uint64_t* rc, int32_t* pi_src, int32_t* pi_rot) {
+  memcpy(rc, KECCAK_RC, sizeof(KECCAK_RC));
+  memcpy(pi_src, KECCAK_PI_SRC, sizeof(KECCAK_PI_SRC));
+  memcpy(pi_rot, KECCAK_PI_ROT, sizeof(KECCAK_PI_ROT));
 }

@@ -8,26 +8,39 @@
 // commitment the device transcript absorbs: three calls a zero-knowledge
 // sumcheck round.  Here it is one launch.
 //
-// What bounds it on an H100: operations.  A point costs about 270 BASE
-// multiplies (csrc/field.cuh: 72 32x32->64 multiplies, 144 32-bit
-// multiply-adds each) against 4 x 88 B read and 32 B written, so at the
-// card's integer rate the arithmetic, not the memory, sets the least time.
-// At the transcript's sizes (1, 2 or 11 points; a witness commitment's 2^k
-// rows) that least time is far below the launch, and what the launch takes
-// is the chain's latency: 270 dependent multiplies in one thread.  The
-// design is the simplest that is right:
+// What bounds it on an H100: operations.  A point costs about 285 BASE
+// multiplies against 4 x 88 B read and 32 B written, so at the card's
+// integer rate the arithmetic, not the memory, sets the least time.  At the
+// transcript's sizes (1, 2 or 11 points; a witness commitment's 2^k rows)
+// that least time is far below a microsecond, and what a launch takes is the
+// latency of the chain: 285 dependent multiplies in one thread, 251 of them
+// squarings.  The design shortens that chain (ristretto.cuh):
 //
-//   * One thread a point, everything in registers (ristretto.cuh on
-//     field.cuh's fe_mul / fe_add / fe_sub): canonicalise X, Y, Z, T; the
-//     fixed addition chain of sqrt_ratio_m1 for the exponent (p - 5) / 8;
-//     the sign tests on canonical values (bit 0); the selects; the final
-//     canonical value written as 32 little-endian bytes.
+//   * A dedicated square, 36 word products instead of 64, for every squaring.
+//   * Loose multiplies inside the chain: fold 2^256 = 38, return any value
+//     below 2^256, and canonicalise only where a value is compared, its sign
+//     read, added or subtracted, or written out (eight points in all).
+//   * On the device the products are summed column by column (product
+//     scanning) with PTX carry instructions, mad.lo.cc / madc.hi.cc / addc
+//     into a three-word accumulator, so a product is three dependent
+//     instructions and no row of partial words is carried through.
+//   * One thread a point, everything in registers, 32 threads a block: a
+//     batch of 4,096 points spreads over 128 SMs, one warp each, where 128
+//     threads a block put it on 32 SMs, a warp on each of their four
+//     schedulers.  Each warp is one dependent chain either way, so the
+//     spread only keeps the warps from sharing an SM's caches.
+//   * About 120 registers a thread, no spills and no local memory: every
+//     loop over words has a fixed trip count, so each product's words stay
+//     in registers.  (A cap of 128 registers by the launch bound made
+//     ptxas spill.)
+//   * One warp a point, the product's columns spread over lanes and summed
+//     with shuffles, was not built: at n <= 11 a shuffle's latency sits on
+//     the same dependent chain as the carry it replaces.
 //   * It reads the port's semi-reduced limbs as the multiply kernel and the
 //     torch ops leave them (any row in [0, 2^256) with |limb| < 2^18).
-//   * 128 threads a block; a batch of 4,096 points fills 32 blocks.
 #include "ristretto.cuh"
 
-#define RE_THREADS 128
+#define RE_THREADS 32
 
 __global__ void __launch_bounds__(RE_THREADS)
 ristretto_encode_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,

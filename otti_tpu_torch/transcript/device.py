@@ -14,17 +14,19 @@ challenges).  So ``pos`` / ``pos_begin`` / ``cur_flags`` stay Python ints on
 the host, and only the 200-byte sponge state is a ``uint8[200]`` tensor on
 the device.  Every strobe operation is a torch op on that tensor at offsets
 known on the host (an XOR, a copy, a zeroing), updating it in place; the
-permutation is kernel K3 (``keccak_f1600_bytes``).  The constant bytes an
-operation absorbs (labels, lengths, framing, padding) are uploaded once per
-device and cached, so that a warm prove sends nothing from the host.
+pad and the permutation are kernel K3 (``keccak_f1600_bytes``).  The
+constant bytes an operation absorbs (labels, lengths, framing) are uploaded
+once per device and cached, so that a warm prove sends nothing from the
+host.
 
 Keccak-f[1600]: ``keccak_f1600_cuda`` launches the CUDA kernel of
-``csrc/keccak.cu`` (in place, one launch for a batch of states);
-``keccak_f1600_plain`` is the same permutation in plain torch on (lo, hi)
-32-bit lane halves held in int64, as the JAX package computes it on uint32
-halves (torch on the CPU has no uint32 ``+`` or ``>>``, nor uint64 shifts).
-``keccak_f1600_bytes`` picks by device: the kernel for a CUDA tensor, the
-plain version for a CPU tensor.
+``csrc/keccak.cu`` (in place, one launch for a batch of states, STROBE's
+pad XORed in first when given ``pos >= 0``); ``keccak_f1600_plain`` is the
+same function in plain torch on (lo, hi) 32-bit lane halves held in int64,
+as the JAX package computes it on uint32 halves (torch on the CPU has no
+uint32 ``+`` or ``>>``, nor uint64 shifts).  ``keccak_f1600_bytes`` picks
+by device: the kernel for a CUDA tensor, the plain version for a CPU
+tensor.
 
 Bit-exactness: mirrors transcript/merlin.py (host) operation for operation;
 tests/test_torch_device_transcript.py holds the state after every
@@ -134,38 +136,47 @@ def _lanes_to_bytes(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return (torch.stack(parts, dim=-1) & 0xFF).reshape(lo.shape[0], 200).to(U8)
 
 
-def keccak_f1600_plain(st: torch.Tensor) -> torch.Tensor:
+def keccak_f1600_plain(st: torch.Tensor, pos: int = -1, pos_begin: int = 0) -> torch.Tensor:
     """Keccak-f[1600] of uint8 states [B, 200] (little-endian lanes) ->
-    new [B, 200] tensor, in plain torch on any device."""
+    new [B, 200] tensor, in plain torch on any device; with ``pos >= 0``
+    STROBE's pad (``_pad_bytes(pos, pos_begin)``) is XORed in first."""
+    if pos >= 0:
+        st = st ^ _pad_bytes(pos, pos_begin, st.device)
     lo, hi = keccak_f1600_lanes(*_bytes_to_lanes(st))
     return _lanes_to_bytes(lo, hi)
 
 
-def keccak_f1600_cuda(st: torch.Tensor) -> torch.Tensor:
-    """Keccak-f[1600] of uint8 states [B, 200] on a CUDA device, IN PLACE,
-    by the CUDA kernel (one launch, one block a state).  Returns ``st``."""
+def keccak_f1600_cuda(st: torch.Tensor, pos: int = -1, pos_begin: int = 0) -> torch.Tensor:
+    """The same on uint8 states [B, 200] on a CUDA device, IN PLACE, by the
+    CUDA kernel (one launch, pad included, one warp a state).  Returns
+    ``st``."""
     if st.device.type != "cuda":
         raise ValueError("keccak_f1600_cuda: the states must be on a CUDA device")
     if st.dtype != U8 or st.dim() != 2 or st.shape[1] != 200 or not st.is_contiguous():
         raise ValueError("keccak_f1600_cuda: contiguous uint8 [B, 200] states required")
+    if st.data_ptr() % 8:  # lanes are read and written as 8-byte words, in place
+        raise ValueError("keccak_f1600_cuda: the states must be 8-byte aligned")
+    if not -1 <= pos <= _RATE:
+        raise ValueError(f"keccak_f1600_cuda: pad position {pos} outside [-1, {_RATE}]")
     if st.shape[0] == 0:
         return st
     lib = _build.library()
-    err = lib.otti_keccak_f1600(st.data_ptr(), st.shape[0], _build.stream_ptr(st))
+    err = lib.otti_keccak_pad_f1600(st.data_ptr(), st.shape[0], pos, pos_begin,
+                                    _build.stream_ptr(st))
     _build.check(err, "keccak_f1600")
     _build.LAUNCHES["keccak_f1600"] += 1
     return st
 
 
-def keccak_f1600_bytes(st: torch.Tensor) -> torch.Tensor:
+def keccak_f1600_bytes(st: torch.Tensor, pos: int = -1, pos_begin: int = 0) -> torch.Tensor:
     """Keccak-f[1600] of uint8 states [B, 200] (or one state [200]) in
-    place: the kernel on a CUDA tensor, the plain version on a CPU tensor.
-    Returns ``st``."""
+    place, STROBE's pad first when ``pos >= 0``: the kernel on a CUDA
+    tensor, the plain version on a CPU tensor.  Returns ``st``."""
     flat = st.view(-1, 200)
     if st.device.type == "cuda":
-        keccak_f1600_cuda(flat)
+        keccak_f1600_cuda(flat, pos, pos_begin)
     elif st.device.type == "cpu":
-        flat.copy_(keccak_f1600_plain(flat))
+        flat.copy_(keccak_f1600_plain(flat, pos, pos_begin))
     else:
         raise ValueError(f"keccak_f1600_bytes: unsupported device {st.device}")
     return st
@@ -187,7 +198,8 @@ def _const_bytes(data: bytes, device) -> torch.Tensor:
 
 
 def _pad_bytes(pos: int, pos_begin: int, device) -> torch.Tensor:
-    """The 200 bytes that _run_f XORs into the state before permuting."""
+    """The 200 bytes of STROBE's pad, XORed into the state before permuting
+    (csrc/keccak.cuh::strobe_pad_lane on the card)."""
     pad = bytearray(200)
     pad[pos] ^= pos_begin
     pad[pos + 1] ^= 0x04
@@ -230,8 +242,7 @@ class DeviceStrobe:
 
     # -- internals ----------------------------------------------------------
     def _run_f(self):
-        self.state ^= _pad_bytes(self.pos, self.pos_begin, self.state.device)
-        keccak_f1600_bytes(self.state)
+        keccak_f1600_bytes(self.state, self.pos, self.pos_begin)
         self.pos = 0
         self.pos_begin = 0
 

@@ -6,10 +6,15 @@ Keccak-f[1600], DeviceStrobe and DeviceTranscript, the port's (on the CPU:
 the plain Keccak, torch ops on the state), and the host strobe; the state
 bytes, the offsets and the challenges must be equal after every operation
 kind (meta_ad, ad, prf, key, a handoff from a host transcript), and the
-byte and scalar codecs must agree.  Tolerance: exact equality.  The K3
-kernel itself is held against the plain version by the ``cuda`` test (and
-by chip_smoke.py's device_fs phase on the card).
+byte and scalar codecs must agree.  ``csrc/keccak.cuh`` compiled for the
+host (the very permutation and pad the K3 kernel runs) is held against the
+host library and the plain version at every pad those operations reach.
+Tolerance: exact equality.  The K3 kernel itself is held against the plain
+version by the ``cuda`` test (and by chip_smoke.py's device_fs phase on the
+card).
 """
+
+import ctypes
 
 import jax
 import jax.numpy as jnp
@@ -20,11 +25,12 @@ import torch
 from otti_tpu.field import ops as JF
 from otti_tpu.field.fields import SCALAR, int_to_limbs, ints_to_limbs, limbs_to_int
 from otti_tpu.transcript import device as JD
-from otti_tpu_torch import _build
+from otti_tpu_torch import _build, native
 from otti_tpu_torch.field import ops as F
 from otti_tpu_torch.transcript import device as TD
 from otti_tpu_torch.transcript import keccak as t_keccak
 from otti_tpu_torch.transcript.merlin import Strobe128, Transcript
+from test_torch_ristretto import host_encode  # noqa: F401  (csrc/host_check.cpp for the host)
 
 torch.set_num_threads(1)  # test workers run side by side on shared cores: one thread each
 
@@ -52,14 +58,16 @@ def test_keccak_plain_matches_jax_and_host():
     assert TD.keccak_f1600_bytes(one) is one and np.array_equal(one.numpy(), got[0])
 
 
-def test_keccak_kernel_constants_are_the_plain_versions():
-    """The block copied into the kernel's constant memory: the 24 round
-    constants, then the rho/pi gather's sources and rotations."""
-    block = _build.keccak_consts()
-    assert block.dtype == np.uint8 and block.shape == (392,)
-    assert list(block[:192].view(np.uint64)) == list(t_keccak._RC)
-    assert np.array_equal(block[192:292].view(np.int32), TD.PI_SRC)
-    assert np.array_equal(block[292:].view(np.int32), TD.PI_ROT)
+def test_keccak_kernel_constants_are_the_plain_versions(host_encode):
+    """The tables compiled into csrc/keccak.cuh (the K3 kernel's): the 24
+    round constants and the rho/pi gather's sources and rotations are the
+    plain version's."""
+    rc = np.zeros(24, np.uint64)
+    src, rot = np.zeros(25, np.int32), np.zeros(25, np.int32)
+    host_encode.otti_host_keccak_tables(
+        *(a.ctypes.data_as(ctypes.c_void_p) for a in (rc, src, rot)))
+    assert list(rc) == list(t_keccak._RC)
+    assert np.array_equal(src, TD.PI_SRC) and np.array_equal(rot, TD.PI_ROT)
     assert sorted(TD.PI_SRC.tolist()) == list(range(25)) and TD.PI_ROT[0] == 0
 
 
@@ -102,6 +110,39 @@ def test_strobe_state_after_each_op_kind(op):
             assert t.prf(64, False).numpy().tobytes() == h.prf(64, False)
             j.prf(64, False)
         _same_strobe(t, j, h)
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_host_keccak_matches_native_and_plain(op, host_encode, monkeypatch):
+    """keccak.cuh for the host, pad and permutation in one call as the K3
+    kernel takes them, at every (pos, pos_begin) that this op kind's strobe
+    sequence permutes at, and without a pad: equal to the host library and
+    to the plain version on seeded states."""
+    pads = []
+    real = TD.keccak_f1600_bytes
+
+    def recording(st, pos=-1, pos_begin=0):
+        pads.append((pos, pos_begin))
+        return real(st, pos, pos_begin)
+
+    monkeypatch.setattr(TD, "keccak_f1600_bytes", recording)
+    test_strobe_state_after_each_op_kind(op)
+    assert all(0 <= pos <= TD._RATE for pos, _ in pads)  # none for meta_ad and ad alone
+    st = _states(3, 20 + OPS.index(op))
+    for pos, pos_begin in sorted(set(pads)) + [(-1, 0)]:
+        got = st.copy()
+        host_encode.otti_host_keccak_pad_f1600(got.ctypes.data_as(ctypes.c_void_p),
+                                               ctypes.c_longlong(3), pos, pos_begin)
+        plain = TD.keccak_f1600_plain(torch.from_numpy(st), pos, pos_begin).numpy()
+        assert np.array_equal(got, plain), (pos, pos_begin)
+        for i in range(3):
+            want = bytearray(st[i].tobytes())
+            if pos >= 0:
+                want[pos] ^= pos_begin
+                want[pos + 1] ^= 0x04
+                want[TD._RATE + 1] ^= 0x80
+            native.keccak_f1600(want)
+            assert got[i].tobytes() == bytes(want), (pos, pos_begin, i)
 
 
 def _scalar_limbs(x):
@@ -192,6 +233,12 @@ def test_keccak_kernel_matches_plain_on_card():
     got = TD.keccak_f1600_cuda(st.clone())
     assert _build.LAUNCHES["keccak_f1600"] == before + 1
     assert torch.equal(got, TD.keccak_f1600_plain(st))
+    padded = TD.keccak_f1600_cuda(st.clone(), 166, 9)
+    assert _build.LAUNCHES["keccak_f1600"] == before + 2
+    assert torch.equal(padded, TD.keccak_f1600_plain(st, 166, 9))
+    with pytest.raises(ValueError):  # permuted in place: a misaligned view is refused
+        TD.keccak_f1600_cuda(
+            torch.zeros(1608, dtype=torch.uint8, device="cuda")[4:1604].view(8, 200))
     t = TD.DeviceTranscript(b"card", "cuda")
     h = Transcript(b"card")
     for i in range(5):

@@ -7,6 +7,8 @@ sums with general Z and T, semi-form limbs) go through
 ``ristretto.encode`` (on the CPU: ``encode_plain``), the host library's
 ``ristretto_encode_host``, and ``csrc/ristretto.cuh`` compiled for the host
 (the very C++ the kernel runs); every encoding must be equal byte for byte.
+That header's loose multiply and dedicated square are held against Python
+integers on the edges of their input range.
 ``edwards.scalar_mul`` is held against the JAX package's ``E.scalar_mul``
 and the host.  Tolerance: exact equality.
 """
@@ -54,15 +56,20 @@ def points():
     return batch, host
 
 
-def test_encode_matches_jax_and_host(points):
+@pytest.fixture(scope="module")
+def jax_encodings(points):
+    j_batch = {k: jnp.asarray(v.numpy()) for k, v in points[0].items()}
+    return np.asarray(jax.jit(JR.encode)(j_batch))
+
+
+def test_encode_matches_jax_and_host(points, jax_encodings):
     batch, host = points
     got = R.encode(batch)
     assert got.shape == (len(host), 32) and got.dtype == torch.uint8
     want_host = [native.ristretto_encode_host(q) for q in host]
     assert [bytes(r) for r in got.numpy()] == want_host
     assert want_host[0] == bytes(32)
-    j_batch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
-    assert np.array_equal(np.asarray(jax.jit(JR.encode)(j_batch)), got.numpy())
+    assert np.array_equal(jax_encodings, got.numpy())
     # one unbatched point, through the wrapper
     one = R.encode(E.tree_map(lambda x: x[3], batch))
     assert one.shape == (32,) and bytes(one.numpy()) == want_host[3]
@@ -96,9 +103,10 @@ def host_encode(tmp_path_factory):
     return lib
 
 
-def test_kernel_arithmetic_on_host_matches_plain(points, host_encode):
+def test_kernel_arithmetic_on_host_matches_plain(points, host_encode, jax_encodings):
     """The per-point encoding the kernel runs, compiled for the host, on
-    the semi-form rows the kernel reads: equal to the plain version."""
+    the semi-form rows the kernel reads: equal to the plain version, the
+    JAX package's encode and the host library."""
     batch, host = points
     rows = [np.ascontiguousarray(batch[k].numpy()) for k in ("x", "y", "z", "t")]
     out = np.zeros((len(host), 32), np.uint8)
@@ -107,10 +115,42 @@ def test_kernel_arithmetic_on_host_matches_plain(points, host_encode):
                                            ctypes.c_longlong(len(host)))
     assert [bytes(r) for r in out] == [native.ristretto_encode_host(q) for q in host]
     assert np.array_equal(out, R.encode_plain(batch).numpy())
+    assert np.array_equal(out, jax_encodings)
     block = _build.ristretto_consts().view(np.uint32)
     assert block.shape == (2 * _build.CONST_WORDS + 16,)
     words = lambda w: sum(int(v) << (32 * i) for i, v in enumerate(w))  # noqa: E731
     assert words(block[26:34]) == ref.SQRT_M1 and words(block[34:]) == ref.INVSQRT_A_MINUS_D
+
+
+def _words8(vals) -> np.ndarray:
+    return np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(8)] for v in vals], np.uint32)
+
+
+@pytest.mark.parametrize("op", ["mul", "sq"])
+def test_loose_base_arithmetic_on_host(host_encode, op):
+    """ristretto.cuh's loose multiply and dedicated square (36 word
+    products), compiled for the host: any input below 2^256, an output below
+    2^256 congruent to the product mod p, never canonicalised.  Every pair of
+    edge values (0, 1, p - 1, p, 2^255, 2^256 - 1, ...), random values, and
+    the outputs fed back in twice."""
+    P = ref.P
+    rng = np.random.default_rng(16)
+    edges = [0, 1, P - 1, P, P + 1, 1 << 255, (1 << 256) - 38, (1 << 256) - 1]
+    rand = [int.from_bytes(rng.bytes(32), "little") for _ in range(64)]
+    xs = [a for a in edges for _ in edges] + rand
+    ys = [b for _ in edges for b in edges] + rand[::-1]
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    for _ in range(3):
+        a, b = _words8(xs), _words8(ys if op == "mul" else xs)
+        out = np.zeros_like(a)
+        host_encode.otti_host_loose(ptr(a), ptr(b), ptr(out), ctypes.c_longlong(len(xs)),
+                                    0 if op == "mul" else 1)
+        got = [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in out]
+        want = [x * (y if op == "mul" else x) % P for x, y in zip(xs, ys)]
+        assert all(g < 1 << 256 for g in got)
+        assert [g % P for g in got] == want
+        xs, ys = got, got[::-1]  # loose outputs as inputs
+    assert any(g >= P for g in got)  # loose: not canonicalised
 
 
 def test_scalar_mul_and_point_ops_match_jax():
