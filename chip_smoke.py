@@ -69,6 +69,22 @@ Phases (each prints a line; any failure exits non-zero):
               each, its time at the most frequent ones, every kernel's
               launches per prove; then torch.profiler over another: the
               device's busy share of the wall time and the top kernels
+ 12. batch    batched proving (spartan/batched.py): eight LPs 117 x 225
+              written from seeds 1-8 (one padded class, printed); kernel 2
+              over a batch with one device challenge an instance == its
+              plain version down to the bare final bind, at B = 8 x 2^13
+              rows and at the shapes the batch path gives it (cubic on the
+              class's constraint rows, quadratic on its z rows, B = 1, 4,
+              8), each timed against single launches; four LPs through
+              cli.run_lp(batch=True) in zero knowledge (every kernel
+              launched) and transparent, every proof verified;
+              prove_many_zk == hybrid.prove_zk == zknizk.prove for the same
+              seeds and prove_many == hybrid.prove == nizk.prove, no host
+              sync inside the batched chains; launches and warm time
+              (median, min and max of 5 runs) of a batch at B = 4, 8
+              against the single default (a batch of one) and classic
+              provers, with the device memory each adds at its peak,
+              overall and by stage
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -96,7 +112,7 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "kernel1", "kernel2", "main", "cpu_gpu", "scale", "lp_sdp", "snark",
-          "device_fs", "profile")
+          "device_fs", "profile", "batch")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -156,13 +172,15 @@ def mul_bound(kind: str, n: int, shared: bool = False) -> tuple:
     return bound((2 * n + (1 if shared else n)) * ROW_BYTES, n, kind)
 
 
-def round_bound(degree: int, n: int) -> tuple:
+def round_bound(degree: int, n: int, instances: int = 1) -> tuple:
     """A bind + evaluate round on tables of n rows whose previous active half
     is n / 2: every row read, n / 2 rows of each table written; n / 2
     multiplies a table in the bind, and 2 (cubic) or 1 (quadratic) a point
-    over n / 4 pairs and 3 or 2 points."""
+    over n / 4 pairs and 3 or 2 points; ``instances`` times that for a
+    batched round."""
     ntab, k, per = (4, 3, 2) if degree == 3 else (2, 2, 1)
-    return bound(ntab * (n + n // 2) * ROW_BYTES, ntab * (n // 2) + (n // 4) * k * per)
+    return bound(instances * ntab * (n + n // 2) * ROW_BYTES,
+                 instances * (ntab * (n // 2) + (n // 4) * k * per))
 
 
 def phase_device(rec: dict) -> None:
@@ -297,9 +315,10 @@ def phase_kernel1(rec: dict) -> None:
 
 
 def _run_sumcheck(fn, tables, degree, rs, snap=True):
-    """All rounds of one sumcheck; returns (per-round evals, the active
+    """All rounds of one sumcheck (tables [n, 22], or [B, n, 22] with a
+    challenge [B, 22] an instance); returns (per-round evals, the active
     prefix of the tables after each round)."""
-    n = tables[0].shape[0]
+    n = tables[0].shape[-2]
     evs = [fn(tables, degree)]
     active, j = n, 0
     snaps = []
@@ -309,7 +328,7 @@ def _run_sumcheck(fn, tables, degree, rs, snap=True):
         active //= 2
         evs.append(ev)
         if snap:
-            snaps.append([t[:active].clone() for t in tables])
+            snaps.append([t[..., :active, :].clone() for t in tables])
     return evs, snaps
 
 
@@ -1516,6 +1535,325 @@ def phase_profile(rec: dict) -> None:
                 + json.dumps({k: round(v, 4) for k, v in metrics.snapshot().items()}))
 
 
+BATCH_LP = (117, 225)
+BATCH_SEEDS = tuple(range(1, 9))  # LPs 117 x 225 from these seeds: one class, 2^14 x 2^14
+BATCH_SIZES = (1, 4, 8)
+BATCH_RUNS = 5  # warm runs of each prover timed in phase batch
+
+
+def _batch_kernel2(rec: dict, n_cons: int, n_z: int) -> None:
+    """Kernel 2 over a batch, one challenge an instance in device memory,
+    every round down to the bare final bind == the plain version, at B = 8
+    instances of 2^13 rows and at the shapes the batch path gives it:
+    phase 1 (cubic) on ``n_cons`` rows and phase 2 (quadratic) on ``n_z``
+    rows at each of BATCH_SIZES.  One bind + evaluate round timed at each
+    shape against the instances by single launches."""
+    from otti_tpu_torch.field.ops import SCALAR, ints_to_limbs
+    from otti_tpu_torch.spartan import sumcheck_kernels as SK
+
+    rng = random.Random(8)
+    pool = torch.from_numpy(ints_to_limbs([rng.randrange(SCALAR.modulus) for _ in range(4096)])
+                            .reshape(4096, 22)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def rand(*shape):  # canonical values over the whole field, drawn on the card
+        return pool[torch.randint(0, 4096, shape, generator=gen, device="cuda")]
+
+    shapes = [(8, 1 << 13, 3), (8, 1 << 13, 2)]
+    shapes += [(nb, n_cons, 3) for nb in BATCH_SIZES] + [(nb, n_z, 2) for nb in BATCH_SIZES]
+    out = {"instances": 8, "n": 1 << 13, "max_abs_err": 0, "shapes": []}
+    for nb, n, degree in shapes:
+        k = 4 if degree == 3 else 2
+        base = [rand(nb, n) for _ in range(k)]
+        rs = [rand(nb) for _ in range(n.bit_length() - 1)]
+        t_k = [t.clone() for t in base]
+        t_p = [t.clone() for t in base]
+        ev_k, sn_k = _run_sumcheck(SK.sumcheck_round_cuda, t_k, degree, rs)
+        ev_p, sn_p = _run_sumcheck(SK.sumcheck_round_plain, t_p, degree, rs)
+        torch.cuda.synchronize()
+        tag = f"batched kernel2 deg {degree} B={nb} n={n}"
+        if ev_k[-1] is not None or ev_p[-1] is not None:
+            raise AssertionError(f"{tag}: the bare final bind evaluated something")
+        err = 0
+        for rnd, (a, b) in enumerate(zip(ev_k[:-1], ev_p[:-1])):
+            if tuple(a.shape) != (nb, 3 if degree == 3 else 2, 22) or not torch.equal(a, b):
+                raise AssertionError(f"{tag}: evals differ in round {rnd}")
+            err = max(err, int((a - b).abs().max()))
+        for rnd, (sa, sb) in enumerate(zip(sn_k, sn_p)):
+            for a, b in zip(sa, sb):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{tag}: tables differ after round {rnd}")
+        del t_k, t_p, sn_k, sn_p
+        # one bind + evaluate round at the full size (ah = n / 2)
+        tabs = [t.clone() for t in base]
+        views = [[t[b] for t in tabs] for b in range(nb)]
+        r0 = rs[0]
+
+        def singles():
+            for b in range(nb):
+                SK.sumcheck_round_cuda(views[b], degree, r0[b], n // 2)
+
+        ms = cuda_ms(lambda: SK.sumcheck_round_cuda(tabs, degree, r0, n // 2), 50,
+                     queue_ahead=True)
+        wrapper = cuda_ms(lambda: SK.sumcheck_round_cuda(tabs, degree, r0, n // 2), 50)
+        single_ms = cuda_ms(singles, 20, queue_ahead=True)
+        plain = cuda_ms(lambda: SK.sumcheck_round_plain(tabs, degree, r0, n // 2), 3)
+        b_ms, b_by = round_bound(degree, n, nb)
+        row = {"instances": nb, "n": n, "degree": degree, "rounds": len(ev_k) - 1,
+               "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
+               "singles_ms": single_ms, "bound_ms": b_ms, "bound_by": b_by}
+        out["shapes"].append(row)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if (nb, n) == (8, 1 << 13):  # the earlier record's keys
+            out["cubic" if degree == 3 else "quad"] = {
+                "ms": ms, "wrapper_ms": wrapper, "plain_ms": plain, "single_x8_ms": single_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[batch:kernel2] degree {degree}, B={nb} x n={n}, device challenges: "
+            f"{row['rounds']} rounds exact down to the bare final bind; one bind+eval round "
+            f"{ms:.4f} ms (through the wrapper {wrapper:.4f} ms), the same {nb} instances by "
+            f"{nb} single launches {single_ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}")
+    rec["kernel2_batched"] = out
+
+
+def _lower_lps(tmp: str) -> list:
+    """The batch instances: LPs of BATCH_LP written from BATCH_SEEDS,
+    lowered -> [(path, shape, vars, inputs)], all of one padded class."""
+    from otti_tpu_torch.codegen import lp_cert
+    from otti_tpu_torch.io import mps
+    from otti_tpu_torch.oracle import lp_oracle
+
+    out = []
+    for seed in BATCH_SEEDS:
+        path = os.path.join(tmp, f"gen{BATCH_LP[0]}x{BATCH_LP[1]}s{seed}.mps")
+        write_lp_mps(path, *BATCH_LP, seed=seed)
+        prob = mps.parse_mps(path)
+        x, y, _ = lp_oracle.solve(prob)
+        out.append((path,) + tuple(lp_cert.build(prob, x, y)))
+    classes = {(sh.num_cons_padded, sh.num_vars_padded) for _, sh, _, _ in out}
+    if len(classes) != 1:
+        raise AssertionError(f"the batch LPs fall into {len(classes)} classes: {classes}")
+    log(f"[batch] {len(out)} LPs {BATCH_LP[0]} x {BATCH_LP[1]} (seeds {BATCH_SEEDS}): "
+        f"{[sh.num_cons for _, sh, _, _ in out]} constraints, one class "
+        f"{classes.pop()} (padded constraints x variables)")
+    return out
+
+
+def _batch_cli(rec: dict, lps: list, tmp: str) -> None:
+    """The main path of this slice: cli.run_lp(batch=True) on four LPs of one
+    class, in zero knowledge (counts set to 0 just before, read just after)
+    and transparent; every proof verifies and its meta says batched."""
+    from otti_tpu_torch import cli
+
+    paths = [p for p, _, _, _ in lps[:4]]
+    for zk, mode, kernels in ((True, "batched-zk", None),
+                              (False, "batched", ("field_mul", "sumcheck_round", "keccak_f1600"))):
+        out_dir = os.path.join(tmp, mode)
+        _zero_launches()
+        ok, text = _captured(f"batch:{mode}", cli.run_lp, paths, out_dir, zk=zk, batch=True)
+        launches = _read_launches(f"batch:{mode}", kernels)
+        if zk:
+            rec["launches_batch"] = launches
+        if not ok or "Batched proving 4 instance(s)" not in text:
+            raise AssertionError(f"run_lp(batch=True, zk={zk}) did not prove one batch of 4")
+        for p in paths:
+            name = os.path.basename(p)
+            if f"Verification successful for {name} (batched)" not in text:
+                raise AssertionError(f"{name} ({mode}) did not verify")
+            meta = _check_meta(f"batch:{mode}", os.path.join(out_dir, "LP", name + ".meta.json"),
+                               mode)
+            if meta["batch"] != 4:
+                raise AssertionError(f"{name}: batch {meta['batch']}, expected 4")
+
+
+def _batch_proofs(rec: dict, lps: list) -> None:
+    """prove_many_zk byte-equal to the single-instance hybrid.prove_zk (a
+    batch of one, without the batch axis) and to the host-transcript
+    zknizk.prove with the same seeds, prove_many to hybrid.prove and
+    nizk.prove; no host sync inside the batched chain; then launches, warm
+    time and peak memory of a batch at B = 4, 8 against the single default
+    (a batch of one) and classic provers."""
+    from otti_tpu_torch import _build, metrics
+    from otti_tpu_torch.spartan import batched, hybrid, nizk, serial, zknizk
+
+    seeds = [bytes([s]) * 32 for s in BATCH_SEEDS]
+    devs = [sh.to_device("cuda") for _, sh, _, _ in lps]
+    vars_ = [v for _, _, v, _ in lps]
+    ins = [i for _, _, _, i in lps]
+    many = batched.prove_many_zk(devs[:4], vars_[:4], ins[:4], seeds=seeds[:4])
+    for b in range(4):
+        got = serial.dumps(many[b])
+        if got != serial.dumps(hybrid.prove_zk(devs[b], vars_[b], ins[b], seed=seeds[b])):
+            raise AssertionError(f"instance {b}: batched zk proof != hybrid.prove_zk's")
+        if got != serial.dumps(zknizk.prove(devs[b], vars_[b], ins[b], seed=seeds[b])):
+            raise AssertionError(f"instance {b}: batched zk proof != zknizk.prove's")
+        if not zknizk.verify(devs[b], ins[b], many[b]):
+            raise AssertionError(f"instance {b}: batched zk proof does not verify")
+    if zknizk.verify(devs[1], ins[1], many[0]):
+        raise AssertionError("a batched zk proof verified for another instance")
+    many = batched.prove_many(devs[:4], vars_[:4], ins[:4])
+    for b in range(4):
+        got = serial.dumps(many[b])
+        if got != serial.dumps(hybrid.prove(devs[b], vars_[b], ins[b])):
+            raise AssertionError(f"instance {b}: batched plain proof != hybrid.prove's")
+        if got != serial.dumps(nizk.prove(devs[b], vars_[b], ins[b])):
+            raise AssertionError(f"instance {b}: batched plain proof != nizk.prove's")
+    os.environ["OTTI_SYNC_CHECK"] = "1"
+    try:
+        batched.prove_many_zk(devs[:4], vars_[:4], ins[:4], seeds=seeds[:4])
+        batched.prove_many(devs[:4], vars_[:4], ins[:4])
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["OTTI_SYNC_CHECK"]
+    log("[batch] prove_many_zk == hybrid.prove_zk == zknizk.prove (same seeds) and prove_many "
+        "== hybrid.prove == nizk.prove on the 4 LPs, byte for byte; every zk proof verifies, "
+        "not for another instance; no host sync inside the batched chains (OTTI_SYNC_CHECK)")
+
+    def timed(fn):
+        """Warm: (seconds of each of BATCH_RUNS calls, launches of one, its
+        stage metrics)."""
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(BATCH_RUNS):
+            before = dict(_build.LAUNCHES)
+            metrics.reset()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        stages = {k: round(v, 4) for k, v in metrics.snapshot().items() if k.endswith("_s")}
+        return walls, {k: v - before[k] for k, v in _build.LAUNCHES.items()}, stages
+
+    def spread(walls, per=1):
+        w = sorted(x / per for x in walls)
+        return {"median": w[len(w) // 2], "min": w[0], "max": w[-1], "runs": len(w)}
+
+    def show(st):
+        return f"median {st['median']:.4f}s (min {st['min']:.4f}, max {st['max']:.4f})"
+
+    res = {}
+    jobs = [("zk-single-default", 1, lambda: hybrid.prove_zk(devs[0], vars_[0], ins[0],
+                                                              seed=seeds[0])),
+            ("zk-single-classic", 1, lambda: zknizk.prove(devs[0], vars_[0], ins[0],
+                                                          seed=seeds[0])),
+            ("plain-single-default", 1, lambda: hybrid.prove(devs[0], vars_[0], ins[0])),
+            ("plain-single-classic", 1, lambda: nizk.prove(devs[0], vars_[0], ins[0]))]
+    for nb in BATCH_SIZES[1:]:  # B = 1 is the single default (hybrid.prove_zk)
+        jobs.append((f"zk-batch{nb}", nb, lambda nb=nb: batched.prove_many_zk(
+            devs[:nb], vars_[:nb], ins[:nb], seeds=seeds[:nb])))
+        jobs.append((f"plain-batch{nb}", nb, lambda nb=nb: batched.prove_many(
+            devs[:nb], vars_[:nb], ins[:nb])))
+    for tag, nb, fn in jobs:
+        walls, per, stages = timed(fn)
+        mem = _peak_mib(fn)
+        res[tag] = {"s": spread(walls), "s_per_instance": spread(walls, nb), "launches": per,
+                    "stages": stages, "memory": mem}
+        log(f"[batch] {tag}{' (B = 1: a batch of one)' if 'default' in tag else ''}: warm "
+            f"{'batch' if 'batch' in tag else 'prove'} "
+            f"{show(res[tag]['s'])} over {BATCH_RUNS} runs, {show(res[tag]['s_per_instance'])} "
+            f"an instance; launches {per}; device memory added at the peak "
+            f"{mem['peak_mib']:.1f} MiB over {mem['base_mib']:.1f} MiB held before, by stage "
+            f"{json.dumps({k: round(v, 1) for k, v in mem['stages_mib'].items()})}; "
+            f"stages {json.dumps(stages)}")
+    for mode in ("zk", "plain"):  # what each instance adds to the peak, B = 1 -> 8
+        lo, hi = res[f"{mode}-single-default"]["memory"], res[f"{mode}-batch8"]["memory"]
+        slope = (hi["peak_mib"] - lo["peak_mib"]) / 7
+        res[f"{mode}-mib_per_instance"] = slope
+        log(f"[batch] {mode}: peak memory {lo['peak_mib']:.1f} MiB at B = 1, "
+            f"{hi['peak_mib']:.1f} MiB at B = 8: {slope:.1f} MiB an instance; at B = 8 the "
+            f"peak stage is {max(hi['stages_mib'], key=hi['stages_mib'].get, default='-')}")
+    rec["batch"] = res
+    _batch_profile(rec, {
+        "zk-single-default": lambda: hybrid.prove_zk(devs[0], vars_[0], ins[0], seed=seeds[0]),
+        "zk-batch8": lambda: batched.prove_many_zk(devs, vars_, ins, seeds=seeds)})
+
+
+def _peak_mib(fn) -> dict:
+    """Device memory that one call of fn() adds at its peak over what was
+    allocated before it (MiB), overall and by stage: the witness commit
+    (commitments.commit_rows) and the zk chain's stages (hybrid._stage).
+    The allocator's counters are kept on the host, so reading them waits
+    on nothing."""
+    from otti_tpu_torch.spartan import commitments, hybrid
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    peaks, top = {}, [0]
+
+    def fold():
+        top[0] = max(top[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    @contextlib.contextmanager
+    def stage(name, _device):
+        fold()
+        try:
+            yield
+        finally:
+            peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated() - base)
+            fold()
+
+    def commit(*a, **kw):
+        with stage("commit", None):
+            return commit_rows(*a, **kw)
+
+    stage_fn, commit_rows = hybrid._stage, commitments.commit_rows
+    hybrid._stage, commitments.commit_rows = stage, commit
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        fold()
+    finally:
+        hybrid._stage, commitments.commit_rows = stage_fn, commit_rows
+    return {"peak_mib": (top[0] - base) / 2**20, "base_mib": base / 2**20,
+            "stages_mib": {k: v / 2**20 for k, v in peaks.items()}}
+
+
+def _batch_profile(rec: dict, fns: dict) -> None:
+    """torch.profiler over one warm call of each of ``fns`` (the single
+    default zk prove, a zk batch of 8): device launches, device time and
+    its share of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for tag, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and getattr(e, "device_time_total", 0) > 0]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        if busy_ms <= 0:
+            raise AssertionError(f"the profiler saw no device time in the {tag} prove")
+        out[tag] = {"device_launches": sum(e.count for e in events), "device_ms": busy_ms,
+                    "profiled_wall_ms": wall * 1e3, "busy_share": busy_ms / (wall * 1e3)}
+        log(f"[batch:profile] {tag}: {out[tag]['device_launches']} device launches, "
+            f"{busy_ms:.1f} ms of device time in {wall * 1e3:.1f} ms of profiled wall "
+            f"({100 * busy_ms / (wall * 1e3):.1f}% busy)")
+    rec["batch_profile"] = out
+
+
+def phase_batch(rec: dict) -> None:
+    """Batched proving (spartan/batched.py, the CLI's --batch): kernel 2
+    over a batch, then four LPs 117 x 225 of one class through
+    cli.run_lp(batch=True), zk and transparent, then byte equality with the
+    single-instance provers and the batch's launches, times and memory at
+    B = 4 and 8 against the single provers."""
+    with tempfile.TemporaryDirectory() as tmp:
+        lps = _lower_lps(tmp)
+        shape = lps[0][1]
+        _batch_kernel2(rec, shape.num_cons_padded, 2 * shape.num_vars_padded)
+        _batch_cli(rec, lps, tmp)
+        _batch_proofs(rec, lps)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1529,7 +1867,7 @@ def main(argv=None) -> int:
     fns = {"device": phase_device, "build": phase_build, "kernel1": phase_kernel1,
            "kernel2": phase_kernel2, "main": phase_main, "cpu_gpu": phase_cpu_gpu,
            "scale": phase_scale, "lp_sdp": phase_lp_sdp, "snark": phase_snark,
-           "device_fs": phase_device_fs, "profile": phase_profile}
+           "device_fs": phase_device_fs, "profile": phase_profile, "batch": phase_batch}
     for name in phases:
         t0 = time.time()
         fns[name](rec)
@@ -1566,11 +1904,14 @@ def main(argv=None) -> int:
                             "launches_snark": rec.get("launches_snark", {}).get(cname),
                             "launches_device_fs":
                                 rec.get("launches_device_fs", {}).get(cname),
+                            "launches_batch": rec.get("launches_batch", {}).get(cname),
                             **{k: v for k, v in rec[key].items()
                                if k in ("base", "quad", "floor_ms", "sizes")},
                             **({"device_challenge": rec["kernel2_device_challenge"]}
                                if key == "kernel2" and "kernel2_device_challenge" in rec
                                else {}),
+                            **({"batched": rec["kernel2_batched"]}
+                               if key == "kernel2" and "kernel2_batched" in rec else {}),
                             "launches_per_prove": {
                                 tag: per.get(cname)
                                 for tag, per in rec.get("launches_per_prove", {}).items()}})

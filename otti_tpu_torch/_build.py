@@ -55,7 +55,8 @@ _SIGNATURES = {
     },
     "sumcheck_round": {
         "otti_sumcheck_init": [_P],
-        "otti_sumcheck_round": [_P, _P, _P, _P, ctypes.c_int, _P, _P, _LL, _LL, _P, _P, _P],
+        "otti_sumcheck_round": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _LL, _P, _P,
+                                ctypes.c_int, _LL, _LL, _P, _P, _P],
     },
     "keccak": {
         "otti_keccak_pad_f1600": [_P, _LL, ctypes.c_int, ctypes.c_int, _P],

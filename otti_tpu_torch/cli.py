@@ -5,7 +5,7 @@
     python -m otti_tpu_torch.cli --sgd [--small|--full|--config F]
     python -m otti_tpu_torch.cli --verify-zkif CIRCUIT [INPUTS] WITNESS
         common: [--transparent | --snark] [--wire otti|spartan] [--emit-zkif]
-                [--resume] [--no-prove] [--device cuda|cpu] [--out DIR]
+                [--batch] [--resume] [--no-prove] [--device cuda|cpu] [--out DIR]
 
 Per instance: parse or fetch -> solver oracle -> lower the certificate to
 R1CS on the host -> move it to the device -> prove -> verify, with the JAX
@@ -28,9 +28,18 @@ and give the bytes of the host-transcript provers.  ``OTTI_CLASSIC=1``
 selects those (``zknizk.prove``, ``nizk.prove``; meta ``mode`` gains
 ``-classic``), ``OTTI_FUSED=1`` / ``OTTI_NO_FUSED=1`` force one side of the
 crossover and ``OTTI_FUSED_MAX_VARS`` moves it; ``--wire spartan`` proves
-with ``zknizk.prove``, whose labels it selects.  Not ported yet, and
-refused with an error naming the ROADMAP item rather than replaced by
-something else: ``--mesh`` and ``--batch``.
+with ``zknizk.prove``, whose labels it selects.
+
+``--batch`` proves every instance of a run after lowering them all: the
+instances are grouped by padded shape class, and each group is proved as
+one stacked device chain (spartan/batched.py: ``prove_many_zk``, or
+``prove_many`` with ``--transparent``), then each proof is verified on its
+own; meta ``mode`` is ``batched-zk`` or ``batched`` and ``timings.prove``
+the batch's time over its size.  As in the JAX CLI, ``--wire``,
+``--emit-zkif`` and ``OTTI_CLASSIC`` do not reach the batched provers, and
+``--batch --snark`` is refused.  Not ported yet, and refused with an error
+naming the ROADMAP item rather than replaced by something else:
+``--mesh``.
 """
 
 from __future__ import annotations
@@ -45,7 +54,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 REFUSED = {
     "mesh": "--mesh (multi-GPU proving) is not ported yet (ROADMAP.md item 1.12)",
-    "batch": "--batch is not ported yet (ROADMAP.md item 1.13)",
 }
 
 DEFAULT_DATASETS = os.environ.get(
@@ -170,10 +178,9 @@ def _provers(shape, zk: bool, wire: str) -> tuple:
     return prove_fn, nizk.verify, classic
 
 
-def _refuse(mesh, batch) -> None:
-    for flag, on in (("mesh", mesh), ("batch", batch)):
-        if on:
-            raise NotImplementedError(REFUSED[flag])
+def _refuse(mesh) -> None:
+    if mesh:
+        raise NotImplementedError(REFUSED["mesh"])
 
 
 def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None,
@@ -259,6 +266,70 @@ def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None
     return ok
 
 
+def _batched_prove_and_verify(lowered, out_dir, zk, device="cuda") -> bool:
+    """Batched proving of lowered instances ``(name, shape, vars, inputs,
+    timer)``, zk or plain (the JAX CLI's ``_batched_prove_and_verify``).
+
+    Instances are grouped by padded shape class, each group is padded to its
+    largest dimensions and proved as one stacked device chain
+    (spartan/batched.py), and each proof is verified on its own and saved
+    with the usual artifacts; ``timings.prove`` is the batch's time over its
+    size."""
+    from . import metrics
+
+    from .spartan import batched, nizk, serial, zknizk
+
+    groups: dict = {}
+    for item in lowered:
+        shape = item[1]
+        groups.setdefault((shape.num_cons_padded, shape.num_vars_padded), []).append(item)
+
+    mode = "batched-zk" if zk else "batched"
+    ok_all = True
+    for key, items in sorted(groups.items()):
+        max_cons = max(sh.num_cons for _, sh, _, _, _ in items)
+        max_vars = max(max(sh.num_vars_padded, sh.num_inputs + 1) for _, sh, _, _, _ in items)
+        _stage(f"Batched proving {len(items)} instance(s){' (zk)' if zk else ''} "
+               f"(shape class {key[0]}x{key[1]}, padded to {max_cons} cons)")
+        devs = []
+        for _, sh, _, _, timer in items:
+            with timer.time("to_device"):
+                devs.append(sh.to_device(device, min_cons=max_cons, min_vars=max_vars))
+        _sync(device)
+        cls = key + (mode, len(items), str(device))
+        capture = "warm" if cls in _SHAPE_CLASSES_SEEN else "cold"
+        _SHAPE_CLASSES_SEEN.add(cls)
+        metrics.reset()
+        t0 = time.time()
+        prove_fn = batched.prove_many_zk if zk else batched.prove_many
+        proofs = prove_fn(devs, [v for _, _, v, _, _ in items], [i for _, _, _, i, _ in items])
+        _sync(device)
+        dt = time.time() - t0
+        prove_metrics = metrics.snapshot()
+        _stage(f"  batch proved in {dt:.2f}s")
+        verify_fn = zknizk.verify if zk else nizk.verify
+        for (name, sh, _, inputs, timer), dev, proof in zip(items, devs, proofs):
+            timer.t["prove"] = dt / len(items)
+            with timer.time("verify"):
+                ok = verify_fn(dev, inputs, proof)
+            if ok:
+                _stage(f"Verification successful for {name} (batched)")
+            else:
+                _stage(f"VERIFICATION FAILED for {name}")
+            ok_all &= ok
+            if out_dir:
+                os.makedirs(out_dir, exist_ok=True)
+                serial.save(proof, os.path.join(out_dir, name + ".proof.json"))
+                with open(os.path.join(out_dir, name + ".meta.json"), "w") as f:
+                    json.dump({"name": name, "mode": mode, "capture": capture,
+                               "device": _device_name(device), "batch": len(items),
+                               "num_cons": sh.num_cons, "num_vars": sh.num_vars,
+                               "num_inputs": sh.num_inputs, "verified": bool(ok),
+                               "proof_bytes": proof.size_bytes(), "timings": timer.t,
+                               "prover_metrics": prove_metrics}, f, indent=2)
+    return ok_all
+
+
 def _device_name(device) -> str:
     if str(device).startswith("cuda"):
         import torch
@@ -296,16 +367,19 @@ def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delt
            emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda") -> bool:
     """Prove and verify the optimality certificate of every MPS file:
     parse -> LP oracle -> lower -> prove; artifacts go to ``<home_out>/LP``.
-    One failing instance does not stop the others.  Returns True when every
-    instance verified."""
+    One failing instance does not stop the others.  With ``batch`` every
+    file is lowered first and each padded shape class proved as one batch
+    (``_batched_prove_and_verify``), as in run_sdp and run_sgd.  Returns
+    True when every instance verified."""
     from .io import mps
     from .oracle import lp_oracle
 
     from .codegen import lp_cert
 
-    _refuse(mesh, batch)
+    _refuse(mesh)
     ok_all = True
     out_dir = os.path.join(home_out, "LP")
+    lowered = []  # with batch: proved together once all are lowered
 
     def lower_one(path):
         timer = Timer()
@@ -329,7 +403,9 @@ def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delt
         try:
             shape, vars_, inputs, opt, timer = fut.result()
             _stage(f"  oracle optimum {opt:.4f}")
-            if prove:
+            if prove and batch:
+                lowered.append((name, shape, vars_, inputs, timer))
+            elif prove:
                 ok_all &= prove_and_verify(shape, vars_, inputs, name, timer, out_dir, zk,
                                            snark, emit_zkif, wire, device)
             else:
@@ -337,6 +413,8 @@ def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delt
         except Exception as e:  # fail-soft per instance, as the JAX CLI
             _stage(f"INSTANCE FAILED {name}: {type(e).__name__}: {e}")
             ok_all = False
+    if prove and batch and lowered:
+        ok_all &= _batched_prove_and_verify(lowered, out_dir, zk, device)
     return ok_all
 
 
@@ -351,9 +429,10 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
 
     from .codegen import sdp_cert
 
-    _refuse(mesh, batch)
+    _refuse(mesh)
     ok_all = True
     out_dir = os.path.join(home_out, "SDP")
+    lowered = []  # with batch: proved together once all are lowered
 
     def lower_one(path):
         timer = Timer()
@@ -383,7 +462,9 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
         _stage(f"Making certificate for {name}")
         try:
             shape, vars_, inputs, timer = fut.result()
-            if prove:
+            if prove and batch:
+                lowered.append((name, shape, vars_, inputs, timer))
+            elif prove:
                 ok_all &= prove_and_verify(shape, vars_, inputs, name, timer, out_dir, zk,
                                            snark, emit_zkif, wire, device)
             else:
@@ -391,6 +472,8 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
         except Exception as e:
             _stage(f"INSTANCE FAILED {name}: {type(e).__name__}: {e}")
             ok_all = False
+    if prove and batch and lowered:
+        ok_all &= _batched_prove_and_verify(lowered, out_dir, zk, device)
     return ok_all
 
 
@@ -403,10 +486,11 @@ def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
     verified is skipped.  Returns True when every instance verified."""
     from .io import pmlb_local
 
-    _refuse(mesh, batch)
+    _refuse(mesh)
     cfg = pmlb_local.load_config(config_path)
     out_dir = os.path.join(home_out, "SGD")
     ok_all = True
+    lowered = []  # with batch: proved together once all are lowered
 
     def lower_one(item):
         timer = Timer()
@@ -427,6 +511,9 @@ def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
             if not prove:
                 _stage(f"  lowered {name}: {shape.num_cons} constraints [{timer.report()}]")
                 continue
+            if batch:
+                lowered.append((name, shape, vars_, inputs, timer))
+                continue
             ok_all &= prove_and_verify(
                 shape, vars_, inputs, name, timer, out_dir, zk, snark, emit_zkif, wire, device,
                 extra_meta={
@@ -441,6 +528,8 @@ def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
         except Exception as e:  # fail-soft per instance, as the JAX CLI
             _stage(f"INSTANCE FAILED {name}: {type(e).__name__}: {e}")
             ok_all = False
+    if prove and batch and lowered:
+        ok_all &= _batched_prove_and_verify(lowered, out_dir, zk, device)
     return ok_all
 
 
@@ -485,7 +574,9 @@ def main(argv=None) -> int:
                         help="prove and verify an imported zkinterface instance: "
                              "<circuit.zkif> <wit.zkif>, or the triple "
                              "<circuit.zkif> <inp.zkif> <wit.zkif>")
-    parser.add_argument("--batch", action="store_true", help="not ported yet")
+    parser.add_argument("--batch", action="store_true",
+                        help="prove the instances of each padded shape class together, as "
+                             "one stacked device chain")
     parser.add_argument("--mesh", type=str, default=None, help="not ported yet")
     args = parser.parse_args(argv)
     if args.zk and args.snark:
@@ -494,14 +585,13 @@ def main(argv=None) -> int:
         parser.error("--zk and --transparent are mutually exclusive")
     if args.batch and args.snark:
         parser.error("--batch and --snark are mutually exclusive")
-    for flag in ("mesh", "batch"):
-        if getattr(args, flag):
-            parser.error(REFUSED[flag])
+    if args.mesh:
+        parser.error(REFUSED["mesh"])
     # zero knowledge is the default, as in otti_tpu; --transparent and --snark opt out
     args.zk = not (args.transparent or args.snark)
     prove = not args.no_prove
     common = dict(zk=args.zk, resume=args.resume, snark=args.snark, emit_zkif=args.emit_zkif,
-                  wire=args.wire, device=args.device)
+                  batch=args.batch, wire=args.wire, device=args.device)
 
     def listdir(sub):
         d = os.path.join(args.datasets, sub)

@@ -58,6 +58,11 @@
 // offsets are multiples of h, a row index determines its (i, offset), so
 // the row sets of two blocks are disjoint.
 //
+// B instances of one size (spartan/batched.py) run in one launch: the grid's
+// y index is the instance, whose tables, challenge, accumulators, ticket
+// and evaluations lie at its own offsets, so each instance's last block
+// finishes its own sums, exactly as a launch on that instance alone would.
+//
 // The tensor cores have no part: these are exact 255-bit integers.
 #include "async_copy.cuh"
 #include "field.cuh"
@@ -95,10 +100,12 @@ __device__ __forceinline__ Fe ext_point(const uint32_t (*tab)[2 * SC_P], int i, 
 // Segment sg of a block: row offset (sg & 1 ? h : 0) + (sg & 2 ? ah : 0);
 // its rows are the hi halves of pairs when sg & 1, else the lo halves.
 struct Round {
-  int32_t* tab[4];
+  int32_t* tab[4];       // instance 0's tables
+  int64_t inst_words;    // words from one instance's table to the next (n * 22)
   int ntab;
   Fe r;
   const int32_t* r_dev;  // when set: r as 22 limbs in device memory (any semi form)
+  int r_stride;          // words from one instance's r_dev to the next (0: shared)
   int64_t ah;      // bind distance (0: no bind)
   int64_t h;       // pair distance
   int64_t nlo;     // rows of the lo segments that exist
@@ -107,8 +114,8 @@ struct Round {
 };
 
 __global__ void __launch_bounds__(SC_THREADS, SC_MIN_BLOCKS)
-sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch,
-                      int32_t* __restrict__ evals) {
+sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch_all,
+                      int32_t* __restrict__ evals_all) {
   __shared__ __align__(128) int32_t raw[4][4][SC_SEG_WORDS];
   __shared__ uint32_t bound[4][OTTI_NW][2 * SC_P];
   __shared__ uint32_t terms[SC_MAXK][OTTI_NW][SC_P];
@@ -121,6 +128,13 @@ sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch,
   const bool bind = rd.ah > 0;
   const int nseg = bind ? 4 : 2;
   const int k = rd.ntab == 4 ? 3 : 2;
+  // this block's instance
+  const int inst = blockIdx.y;
+  const int64_t toff = inst * rd.inst_words;  // TAB(q): table q of this instance
+#define TAB(q) (rd.tab[q] + toff)
+  const int32_t* r_dev = rd.r_dev ? rd.r_dev + inst * rd.r_stride : nullptr;
+  u64* scratch = scratch_all + inst * (SC_TICKET + 1);
+  int32_t* evals = evals_all ? evals_all + inst * (k * OTTI_NL) : nullptr;
 
   // ---- load the block's segments into shared memory
   if (rd.bulk) {
@@ -131,7 +145,7 @@ sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch,
       for (int q = 0; q < rd.ntab; ++q)
         for (int sg = 0; sg < nseg; ++sg) {
           const int64_t row = i0 + (sg & 1 ? rd.h : 0) + (sg & 2 ? rd.ah : 0);
-          bulk_load(raw[q][sg], rd.tab[q] + row * OTTI_NL, SC_SEG_BYTES, &bar);
+          bulk_load(raw[q][sg], TAB(q) + row * OTTI_NL, SC_SEG_BYTES, &bar);
         }
     }
     __syncthreads();  // the barrier is initialised before anyone waits on it
@@ -143,7 +157,7 @@ sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch,
       const int64_t i = i0 + w / OTTI_NL;
       if (i < (sg & 1 ? rd.npairs : rd.nlo)) {
         const int64_t row = i + (sg & 1 ? rd.h : 0) + (sg & 2 ? rd.ah : 0);
-        raw[q][sg][w] = rd.tab[q][row * OTTI_NL + w % OTTI_NL];
+        raw[q][sg][w] = TAB(q)[row * OTTI_NL + w % OTTI_NL];
       }
     }
     __syncthreads();
@@ -158,10 +172,10 @@ sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch,
       Fe x = load_canon(mine);
       if (bind) {
         Fe r = rd.r;
-        if (rd.r_dev) {  // squeezed on the card: read where the transcript left it
+        if (r_dev) {  // squeezed on the card: read where the transcript left it
           int32_t limbs[OTTI_NL];
 #pragma unroll
-          for (int l = 0; l < OTTI_NL; ++l) limbs[l] = rd.r_dev[l];
+          for (int l = 0; l < OTTI_NL; ++l) limbs[l] = r_dev[l];
           r = fe_canon<FIELD_SCALAR>(fe_pack(limbs));
         }
         const Fe y = load_canon(raw[q][sg + 2] + row * OTTI_NL);
@@ -182,7 +196,7 @@ sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch,
       if (tid == 0) {
         for (int q = 0; q < rd.ntab; ++q)
           for (int sg = 0; sg < 2; ++sg)
-            bulk_store(rd.tab[q] + (i0 + (sg ? rd.h : 0)) * OTTI_NL, raw[q][sg],
+            bulk_store(TAB(q) + (i0 + (sg ? rd.h : 0)) * OTTI_NL, raw[q][sg],
                        SC_SEG_BYTES);
         bulk_commit();
       }
@@ -192,7 +206,7 @@ sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch,
         const int sg = rem / SC_SEG_WORDS, w = rem % SC_SEG_WORDS;
         const int64_t i = i0 + w / OTTI_NL;
         if (i < (sg ? rd.npairs : rd.nlo))
-          rd.tab[q][(i + (sg ? rd.h : 0)) * OTTI_NL + w % OTTI_NL] = raw[q][sg][w];
+          TAB(q)[(i + (sg ? rd.h : 0)) * OTTI_NL + w % OTTI_NL] = raw[q][sg][w];
       }
     }
   }
@@ -253,45 +267,53 @@ sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch,
     }
   }
   if (rd.bulk && bind && tid == 0) bulk_wait_all();
+#undef TAB
 }
 
 extern "C" int otti_sumcheck_init(const int32_t* consts) {
   return set_field_consts(consts);
 }
 
-// tables: ntab (2 or 4) pointers to [n, 22] int32 device tables, updated in
-// place.  r: the 8 words of the canonical challenge in host memory, or
-// r_dev: the challenge as 22 int32 limbs in device memory (a value in
-// [0, 2^256), |limb| < 2^18), read by the kernel; r_dev wins when both are
-// given; both are ignored when ah == 0.  ah: the previous active half (0: no bind, 1: bare final
-// bind, which evaluates nothing).  half: the pair distance when ah == 0.
-// scratch: 25 uint64 on the device, zero before the first launch and left
-// zero by every launch (24 accumulators and the ticket); launches that share
-// it must be ordered on one stream.  evals: k * 22 int32 (k = 3 cubic, 2
-// quad), unused when ah == 1.  Returns the launch's cudaGetLastError().
+// tables: ntab (2 or 4) pointers to batch instances' [n, 22] int32 device
+// tables each ([batch, n, 22], contiguous), updated in place.  r: the 8 words
+// of the canonical challenge in host memory, shared by the instances, or
+// r_dev: the challenges as 22 int32 limbs in device memory (a value in
+// [0, 2^256), |limb| < 2^18), instance b's at r_dev + b * r_stride (r_stride
+// 0: one shared), read by the kernel; r_dev wins when both are given; both
+// are ignored when ah == 0.  ah: the previous active half (0: no bind, 1:
+// bare final bind, which evaluates nothing).  half: the pair distance when
+// ah == 0.  scratch: 25 uint64 an instance on the device, zero before the
+// first launch and left zero by every launch (24 accumulators and the
+// ticket); launches that share it must be ordered on one stream.  evals:
+// k * 22 int32 an instance (k = 3 cubic, 2 quad), unused when ah == 1.
+// Returns the launch's cudaGetLastError().
 extern "C" int otti_sumcheck_round(int32_t* t0, int32_t* t1, int32_t* t2,
-                                   int32_t* t3, int ntab, const uint32_t* r_host,
-                                   const int32_t* r_dev, long long ah, long long half, u64* scratch,
+                                   int32_t* t3, int ntab, int batch, long long n,
+                                   const uint32_t* r_host, const int32_t* r_dev, int r_stride,
+                                   long long ah, long long half, u64* scratch,
                                    int32_t* evals, void* stream) {
-  if ((ntab != 2 && ntab != 4) || ah < 0) return (int)cudaErrorInvalidValue;
+  if ((ntab != 2 && ntab != 4) || ah < 0 || batch < 1 || batch > 65535 || n < 1)
+    return (int)cudaErrorInvalidValue;
   Round rd;
   rd.tab[0] = t0;
   rd.tab[1] = t1;
   rd.tab[2] = t2;
   rd.tab[3] = t3;
+  rd.inst_words = n * OTTI_NL;
   rd.ntab = ntab;
   for (int w = 0; w < OTTI_NW; ++w) rd.r.w[w] = ah > 0 && r_host ? r_host[w] : 0u;
   rd.r_dev = ah > 0 ? r_dev : nullptr;
+  rd.r_stride = r_stride;
   rd.ah = ah;
   rd.h = ah > 0 ? ah / 2 : half;
   rd.npairs = rd.h;
   rd.nlo = ah == 1 ? 1 : rd.h;
   if (rd.nlo <= 0) return 0;
-  uintptr_t bits = 0;
+  uintptr_t bits = batch > 1 ? (uintptr_t)(rd.inst_words * 4) : 0;  // every instance aligned
   for (int q = 0; q < ntab; ++q) bits |= (uintptr_t)rd.tab[q];
   rd.bulk = (bits & 15) == 0 && rd.npairs > 0 && rd.npairs % SC_P == 0;
   const long long blocks = (rd.nlo + SC_P - 1) / SC_P;
-  sumcheck_round_kernel<<<(unsigned)blocks, SC_THREADS, 0, (cudaStream_t)stream>>>(
-      rd, scratch, evals);
+  sumcheck_round_kernel<<<dim3((unsigned)blocks, (unsigned)batch), SC_THREADS, 0,
+                          (cudaStream_t)stream>>>(rd, scratch, evals);
   return (int)cudaGetLastError();
 }

@@ -157,6 +157,15 @@ def window_digits(scalars: torch.Tensor) -> torch.Tensor:
     return (shaped * weights).sum(-1)
 
 
+# Points one pass of msm_fixed_base gathers at most: the gathered entries
+# and the add tree's temporaries take 1.6-1.9 KB a point on an H100
+# (PERF.md), so a larger matrix goes through in passes of rows (a power of
+# two of them) that give the same points: a pass of 2^21 points added
+# 3,315 MiB at the peak there, and a Hyrax grid of up to 128 x 256 still
+# commits in one pass.
+MSM_PASS_POINTS = 1 << 21
+
+
 def msm_fixed_base(n_gens: int, label: bytes, scalar_matrix: torch.Tensor,
                    with_blind: bool = False, tbl: dict | None = None) -> dict:
     """Batched fixed-base MSM: [rows, cols, 22] scalars (cols <= n_gens, plus
@@ -167,6 +176,11 @@ def msm_fixed_base(n_gens: int, label: bytes, scalar_matrix: torch.Tensor,
     if tbl is None:
         tbl = fixed_base_tables(n_gens, label, with_blind, device)
     rows, cols = scalar_matrix.shape[0], scalar_matrix.shape[1]
+    per_pass = 1 << max(0, (MSM_PASS_POINTS // (cols * N_WIN)).bit_length() - 1)
+    if rows > per_pass:
+        parts = [msm_fixed_base(n_gens, label, scalar_matrix[i : i + per_pass], with_blind, tbl)
+                 for i in range(0, rows, per_pass)]
+        return E.tree_map(lambda *xs: torch.cat(xs), *parts)
     digits = window_digits(scalar_matrix)  # [rows, cols, N_WIN]
     gen_idx = torch.arange(cols, device=device)
     if with_blind:  # the blind scalar is the LAST column -> generator H (no host copy)

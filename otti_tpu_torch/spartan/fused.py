@@ -60,27 +60,30 @@ def _round_scan(t: DeviceTranscript, tables: list, degree: int, label: bytes):
     the next launch of kernel 2 binds r (read from device memory) and
     evaluates the next round.  The tables are bound in place; their row 0
     holds the final values after the last (bare) bind.  Returns (evals
-    [mu, 3 or 2, 22], rs [mu, 22]), canonical."""
+    [mu, 3 or 2, 22], rs [mu, 22]), canonical.  Tables [B, n, 22] with a
+    transcript of B states run B instances side by side: (evals [B, mu, 3
+    or 2, 22], rs [B, mu, 22])."""
     pts = (0, 2, 3) if degree == 3 else (0, 2)
     labels = [label + b"/e%d" % p for p in pts]
-    n = tables[0].shape[0]
+    lead = tuple(tables[0].shape[:-2])
+    n = tables[0].shape[-2]
     mu = (n - 1).bit_length()
     if mu == 0:
         dev = tables[0].device
-        return F.zeros((0, len(pts)), dev), F.zeros((0,), dev)
+        return F.zeros(lead + (0, len(pts)), dev), F.zeros(lead + (0,), dev)
     evals = sumcheck_round(tables, degree)
     rounds, rs = [], []
     active = n
     for _ in range(mu):
         assert t.strobe.offsets == _POST_CHALLENGE, "round not at the post-challenge offsets"
         for i, lbl in enumerate(labels):
-            t.append_scalar_limbs(lbl, evals[i])
+            t.append_scalar_limbs(lbl, evals[..., i, :])
         r = t.challenge_scalar_limbs(label + b"/r")
         rounds.append(evals)
         rs.append(r)
         evals = sumcheck_round(tables, degree, r, active // 2)
         active //= 2
-    return torch.stack(rounds), torch.stack(rs)
+    return torch.stack(rounds, dim=len(lead)), torch.stack(rs, dim=len(lead))
 
 
 def _core(dev: r1cs.R1CSDevice, t: DeviceTranscript, w_flat: torch.Tensor, z: torch.Tensor,

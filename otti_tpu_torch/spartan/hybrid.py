@@ -23,8 +23,12 @@ physical shrink of the tables between them (``_zk_phase_segmented``,
 over tables that kernel 2 binds in place and only ever reads in their
 active prefix, so it does the work of the segmented form without the
 copies, and the bytes of the proof are the same.  fused.py and zkfused.py
-run the same chain after absorbing the witness commitment on the device;
-the JAX package's batched forms (``--batch``) are not ported here.
+run the same chain after absorbing the witness commitment on the device.
+The JAX package's batched forms (``_phase1_batched``, ``_zk_seg_batched``,
+... for ``--batch``) are this same chain: every phase, the transcript, the
+sumcheck round and the round commitments take a leading batch axis, and
+spartan/batched.py runs the chain once for B instances.  ``prove`` and
+``prove_zk`` are its batch of one.
 
 The provers run under ``torch.inference_mode()``: no tensor of a proof
 needs autograd, and without its bookkeeping each of the chain's many small
@@ -39,16 +43,16 @@ from __future__ import annotations
 import contextlib
 import os
 
+import numpy as np
 import torch
 
 from .. import metrics
 from ..field import ops as F
-from ..field.fields import SCALAR
-from ..transcript.device import DeviceTranscript, export_host_strobe
+from ..field.fields import N_LIMBS, SCALAR
+from ..transcript.device import DeviceStrobe, DeviceTranscript, export_host_strobe
 from ..transcript.merlin import Transcript, transcript_from_strobe_state
-from . import commitments, mle, nizk, r1cs
-from .fused import _POST_CHALLENGE, _round_scan, assemble_plain_proof
-from .nizk import GENS_LABEL, _hyrax_dims, _sb
+from . import mle, r1cs
+from .fused import _POST_CHALLENGE, _round_scan
 
 MOD = SCALAR.modulus
 
@@ -103,13 +107,18 @@ def _fetch_packed(int_arrs: list, u8_arrs: list):
     return pull(int_arrs, torch.int32), pull(u8_arrs, torch.uint8)
 
 
-def _check_handoff(t: Transcript, device) -> DeviceTranscript:
-    """The host transcript continued on ``device``; the phases resume the
-    sponge at the post-challenge offsets, so it must be exactly there."""
-    _, pos, pos_begin, flags = export_host_strobe(t.strobe)
-    assert (pos, pos_begin, flags) == _POST_CHALLENGE, (
-        "host transcript not at the post-challenge offsets")
-    return DeviceTranscript.from_host(t, device)
+def _check_handoff(ts: list, device) -> DeviceTranscript:
+    """B host transcripts continued on ``device`` as one [B, 200] state
+    (one as a [200] state); the phases resume every sponge at the
+    post-challenge offsets, so each must be exactly there."""
+    states = []
+    for t in ts:
+        st, pos, pos_begin, flags = export_host_strobe(t.strobe)
+        assert (pos, pos_begin, flags) == _POST_CHALLENGE, (
+            "host transcript not at the post-challenge offsets")
+        states.append(st)
+    state = torch.from_numpy(np.stack(states) if len(states) > 1 else states[0]).to(device)
+    return DeviceTranscript(_strobe=DeviceStrobe.from_state(state, *_POST_CHALLENGE))
 
 
 def _fork(t: Transcript) -> Transcript:
@@ -124,13 +133,15 @@ def _fork(t: Transcript) -> Transcript:
 
 def _phase1(t: DeviceTranscript, eq, az, bz, cz):
     """All rounds of the cubic phase, then vA/vB/vC absorbed and the
-    phase-2 challenges.  Returns (rounds, rxs, vabc [3, 22], rabc [3, 22])."""
+    phase-2 challenges.  Returns (rounds, rxs, vabc [3, 22], rabc [3, 22]);
+    every phase here takes a leading batch axis ([B, n, 22] tables, a
+    transcript of B states) and gives every result one."""
     rounds, rxs = _round_scan(t, [eq, az, bz, cz], 3, b"sc1")
-    vabc = F.canon(SCALAR, torch.stack([az[0], bz[0], cz[0]]))
-    for lbl, v in zip((b"vA", b"vB", b"vC"), vabc):
+    vabc = F.canon(SCALAR, torch.stack([az[..., 0, :], bz[..., 0, :], cz[..., 0, :]], dim=-2))
+    for lbl, v in zip((b"vA", b"vB", b"vC"), vabc.unbind(-2)):
         t.append_scalar_limbs(lbl, v)
     rabc = torch.stack([t.challenge_scalar_limbs(lbl)
-                        for lbl in (b"challenge_Az", b"challenge_Bz", b"challenge_Cz")])
+                        for lbl in (b"challenge_Az", b"challenge_Bz", b"challenge_Cz")], dim=-2)
     return rounds, rxs, vabc, rabc
 
 
@@ -139,19 +150,26 @@ def _phase2(t: DeviceTranscript, m_table, z):
     return _round_scan(t, [m_table, z], 2, b"sc2")
 
 
-def _row_weights(r_w, mu_rows: int, device):
+def _row_weights(r_w, mu_rows: int):
+    """eq(r_w[:mu_rows], .) over the Hyrax rows: [..., rows, 22]."""
     if mu_rows:
-        return mle.eq_table(r_w[:mu_rows])
-    return F.ones(SCALAR, (1,), device)
+        return mle.eq_table(r_w[..., :mu_rows, :])
+    return F.ones(SCALAR, tuple(r_w.shape[:-2]) + (1,), r_w.device)
+
+
+def _opening_common(w_flat, rys, mu_rows: int, mu_cols: int):
+    """(eq_L [.., rows, 22], u = L^T W [.., cols, 22], W(ry[1:]) [.., 22])."""
+    r_w = rys[..., 1:, :]
+    W = w_flat.reshape(tuple(w_flat.shape[:-2]) + (1 << mu_rows, 1 << mu_cols, -1))
+    eq_L = _row_weights(r_w, mu_rows)
+    u = F.canon(SCALAR, F.sum_reduce(SCALAR, F.mul(SCALAR, eq_L[..., None, :], W), axis=-3))
+    w_eval = F.canon(SCALAR, F.dot(SCALAR, mle.eq_table(r_w), w_flat, axis=-2))
+    return eq_L, u, w_eval
 
 
 def _opening(w_flat, rys, mu_rows: int, mu_cols: int):
     """Hyrax opening materials u = L^T W and claim_w = W(ry[1:])."""
-    r_w = rys[1:]
-    W = w_flat.reshape(1 << mu_rows, 1 << mu_cols, -1)
-    eq_L = _row_weights(r_w, mu_rows, w_flat.device)
-    u = F.canon(SCALAR, F.sum_reduce(SCALAR, F.mul(SCALAR, eq_L[:, None, :], W), axis=0))
-    claim_w = F.canon(SCALAR, F.dot(SCALAR, mle.eq_table(r_w), w_flat))
+    _, u, claim_w = _opening_common(w_flat, rys, mu_rows, mu_cols)
     return u, claim_w
 
 
@@ -162,58 +180,19 @@ def _device_chain(dev: r1cs.R1CSDevice, t: DeviceTranscript, tau, z, w_flat, mu_
     eq_tau = mle.eq_table(tau)
     az, bz, cz = dev.matvecs(z)
     rounds1, rxs, vabc, rabc = _phase1(t, eq_tau, az, bz, cz)
-    m_table = dev.matvec_T_weighted((rabc[0], rabc[1], rabc[2]), mle.eq_table(rxs))
+    m_table = dev.matvec_T_weighted(rabc.unbind(-2), mle.eq_table(rxs))
     rounds2, rys = _phase2(t, m_table, z)
     u, claim_w = _opening(w_flat, rys, mu_rows, mu_cols)
     return rounds1, vabc, rounds2, u, claim_w
 
 
-@torch.inference_mode()
 def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, proto: bytes = None):
     """Drop-in replacement for nizk.prove producing byte-identical proofs,
-    with two device->host transfers whatever the instance's size."""
-    device = dev.device
-    t = Transcript(proto or nizk.PROTO)
-    t.append_message(b"R1CS", dev.digest)
-    t.append_u64(b"num_inputs", len(inputs_ints))
-    for x in inputs_ints:
-        t.append_scalar(b"input", _sb(x))
+    with two device->host transfers whatever the instance's size: a batch
+    of one (batched.prove_many)."""
+    from .batched import prove_many
 
-    nvp = dev.num_vars
-    metrics.add("constraints", dev.num_cons)
-    metrics.add("msm_points", nvp)
-    mu_rows, mu_cols = _hyrax_dims(nvp)
-    mu_x = (dev.num_cons - 1).bit_length()
-    vars_padded = list(vars_ints) + [0] * (nvp - len(vars_ints))
-
-    # ---- commitment (device MSM) + its encodings (host transfer 1) ----------
-    w_flat = nizk._vec(vars_padded, device)
-    W = w_flat.reshape(1 << mu_rows, 1 << mu_cols, -1)
-    with metrics.timed("commit"):
-        comm_enc = commitments.encode_points(
-            commitments.commit_rows(W, [0] * (1 << mu_rows), GENS_LABEL))
-    # advance a scratch replica past the commitment to tau, leaving ``t``
-    # pristine for assemble_plain_proof's replay
-    t2 = _fork(t)
-    for enc in comm_enc:
-        t2.append_point(b"poly_commitment", enc)
-    tau = t2.challenge_vector(b"challenge_tau", mu_x)
-
-    # ---- the device chain (no host sync), then transfer 2 ------------------
-    with metrics.timed("device_chain"):
-        td = _check_handoff(t2, device)
-        z = r1cs.assemble_z(w_flat, nizk._vec(inputs_ints, device) if inputs_ints else None, nvp)
-        tau_dev = nizk._vec(tau, device)
-        with _no_host_sync(device):
-            rounds1, vabc, rounds2, u, claim_w = _device_chain(
-                dev, td, tau_dev, z, w_flat, mu_rows, mu_cols)
-        (r1_np, vabc_np, r2_np, u_np, cw_np), _ = _fetch_packed(
-            [rounds1, vabc, rounds2, u, claim_w], [])
-    metrics.add("sumcheck_rounds", mu_x)
-
-    with metrics.timed("host_tail"):
-        return assemble_plain_proof(
-            t, comm_enc, r1_np, vabc_np, r2_np, u_np, cw_np, mu_x, mu_rows, mu_cols)
+    return prove_many([dev], [vars_ints], [inputs_ints], proto=proto)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -225,10 +204,10 @@ def _zk_phase1(t: DeviceTranscript, tables: list, sc1_blinds: tuple, tbl_sc1: di
     rxs, vabc)."""
     from .zkfused import _zk_round_scan
 
-    zero = F.zeros((), tables[0].device)
+    zero = F.zeros(tuple(tables[0].shape[:-2]), tables[0].device)
     e1, be1, encs, zz, zdb, rxs = _zk_round_scan(t, b"sc1", 3, tbl_sc1, tables, sc1_blinds,
                                                  zero, zero)
-    vabc = F.canon(SCALAR, torch.stack([tables[1][0], tables[2][0], tables[3][0]]))
+    vabc = F.canon(SCALAR, torch.stack([tb[..., 0, :] for tb in tables[1:]], dim=-2))
     return e1, be1, encs, zz, zdb, rxs, vabc
 
 
@@ -238,7 +217,7 @@ def _zk_mid(t: DeviceTranscript, tau, rxs, vabc, abc_blinds, prod_blinds, eq1_a,
     mid_z, rabc, claim2, bclaim2)."""
     from .zkfused import _mid_zk
 
-    return _mid_zk(t, tau, rxs, vabc[0], vabc[1], vabc[2], abc_blinds, prod_blinds, eq1_a,
+    return _mid_zk(t, tau, rxs, *vabc.unbind(-2), abc_blinds, prod_blinds, eq1_a,
                    e1, be1, tbl_mid)
 
 
@@ -256,14 +235,10 @@ def _zk_phase2(t: DeviceTranscript, m_table, z, claim2, bclaim2, sc2_blinds: tup
 def _zk_opening(w_flat, row_blinds, rys, eabc, rabc, mu_rows: int, mu_cols: int):
     """u = L^T W, and [b_u = <L, row_blinds>, w_eval = W(ry[1:]),
     v_m = r_a ea + r_b eb + r_c ec] (matrix evaluations passed in)."""
-    r_w = rys[1:]
-    W = w_flat.reshape(1 << mu_rows, 1 << mu_cols, -1)
-    eq_L = _row_weights(r_w, mu_rows, w_flat.device)
-    u = F.canon(SCALAR, F.sum_reduce(SCALAR, F.mul(SCALAR, eq_L[:, None, :], W), axis=0))
-    b_u = F.canon(SCALAR, F.dot(SCALAR, eq_L, row_blinds))
-    w_eval = F.canon(SCALAR, F.dot(SCALAR, mle.eq_table(r_w), w_flat))
-    v_m = F.canon(SCALAR, F.sum_reduce(SCALAR, F.mul(SCALAR, rabc, eabc)))
-    return u, torch.stack([b_u, w_eval, v_m])
+    eq_L, u, w_eval = _opening_common(w_flat, rys, mu_rows, mu_cols)
+    b_u = F.canon(SCALAR, F.dot(SCALAR, eq_L, row_blinds, axis=-2))
+    v_m = F.canon(SCALAR, F.sum_reduce(SCALAR, F.mul(SCALAR, rabc, eabc), axis=-2))
+    return u, torch.stack([b_u, w_eval, v_m], dim=-2)
 
 
 def _zk_device_chain(dev: r1cs.R1CSDevice, t: DeviceTranscript, tau, z, w_flat, row_blinds,
@@ -285,17 +260,18 @@ def _zk_device_chain(dev: r1cs.R1CSDevice, t: DeviceTranscript, tau, z, w_flat, 
             t, tau, rxs, vabc, abc, prod, eq1_a, e1, be1, tbl_mid)
     e_rx = mle.eq_table(rxs)
     with _stage("m_table", device):
-        m_table = dev.matvec_T_weighted((rabc[0], rabc[1], rabc[2]), e_rx)
+        m_table = dev.matvec_T_weighted(rabc.unbind(-2), e_rx)
     with _stage("zk_phase2", device):
         e2, be2, sc2_encs, sc2_z, sc2_zdb, rys = _zk_phase2(
             t, m_table, z, claim2, bclaim2, sc2_blinds, tbl_sc2)
     with _stage("eval_at", device):
-        eabc = torch.stack(dev.eval_at(e_rx, mle.eq_table(rys)))
+        eabc = torch.stack(dev.eval_at(e_rx, mle.eq_table(rys)), dim=-2)
     with _stage("opening", device):
         u, buwv = _zk_opening(w_flat, row_blinds, rys, eabc, rabc, mu_rows, mu_cols)
     return dict(state2=t.strobe.state, sc1_encs=sc1_encs, sc1_z=sc1_z, sc1_zdb=sc1_zdb,
                 mid_encs=mid_encs, mid_z=mid_z, sc2_encs=sc2_encs, sc2_z=sc2_z,
-                sc2_zdb=sc2_zdb, u=u, tail_vals=torch.cat([buwv, torch.stack([e2, be2])]),
+                sc2_zdb=sc2_zdb, u=u, tail_vals=torch.cat([buwv, torch.stack([e2, be2], dim=-2)],
+                                                          dim=-2),
                 rys=rys)
 
 
@@ -314,86 +290,65 @@ def _fetch_zk(out: dict, extra_u8: tuple = ()) -> dict:
     return got
 
 
-def _zk_uploads(rng, dev: r1cs.R1CSDevice, mu_rows: int):
-    """Every blind of the proof up to the host tail, drawn in zknizk.prove's
-    order (``rng`` is left where the tail continues), and uploaded.
-    Returns (row_blinds ints, row_blinds, sc1, abc, prod, eq1_a, sc2)."""
+def _zk_uploads(rngs: list, dev, mu_rows: int):
+    """Every blind of the proof up to the host tail, drawn from each
+    instance's ``rng`` in zknizk.prove's order (each ``rng`` is left where
+    its tail continues), and uploaded with a leading axis of len(rngs), one
+    upload a kind.  Returns (row blinds as ints an instance, row_blinds,
+    sc1, abc, prod, eq1_a, sc2)."""
     from .zkfused import _devs
 
     device = dev.device
     mu_x = (dev.num_cons - 1).bit_length()
     mu_y = (dev.num_z - 1).bit_length()
-    row_blinds = rng.scalars(1 << mu_rows)
+    nb = len(rngs)
+    draws = []
+    for rng in rngs:
+        d = {"rows": rng.scalars(1 << mu_rows)}
 
-    def sc_draws(n_rounds, degree):
-        bp, bn, dd, rd, rb = [], [], [], [], []
-        for _ in range(n_rounds):
-            bp.append(rng.scalar())
-            bn.append(rng.scalar())
-            dd.extend(rng.scalars(degree + 1))
-            rd.append(rng.scalar())
-            rb.append(rng.scalar())
-        return (_devs(bp, device), _devs(bn, device),
-                _devs(dd, device).reshape(n_rounds, degree + 1, -1),
-                _devs(rd, device), _devs(rb, device))
+        def sc_draws(n_rounds, degree):
+            bp, bn, dd, rd, rb = [], [], [], [], []
+            for _ in range(n_rounds):
+                bp.append(rng.scalar())
+                bn.append(rng.scalar())
+                dd.extend(rng.scalars(degree + 1))
+                rd.append(rng.scalar())
+                rb.append(rng.scalar())
+            return bp, bn, dd, rd, rb
 
-    sc1 = sc_draws(mu_x, 3)
-    abc = rng.scalars(3) + [rng.scalar()]  # bA, bB, bC, b_ab
-    prod = rng.scalars(5)
-    eq1_a = rng.scalar()
-    sc2 = sc_draws(mu_y, 2)
-    # the opening's and eq2's blinds are drawn by the host tail
-    return (row_blinds, _devs(row_blinds, device), sc1, _devs(abc, device),
-            _devs(prod, device), _devs([eq1_a], device)[0], sc2)
+        d["sc1"] = sc_draws(mu_x, 3)
+        d["abc"] = rng.scalars(3) + [rng.scalar()]  # bA, bB, bC, b_ab
+        d["prod"] = rng.scalars(5)
+        d["eq1_a"] = [rng.scalar()]
+        d["sc2"] = sc_draws(mu_y, 2)
+        # the opening's and eq2's blinds are drawn by the host tail
+        draws.append(d)
+
+    def up(get, *shape):
+        return _devs([x for d in draws for x in get(d)], device).reshape((nb,) + shape + (N_LIMBS,))
+
+    def sc(key, n_rounds, degree):
+        return tuple(up(lambda d, i=i: d[key][i], n_rounds, *((degree + 1,) if i == 2 else ()))
+                     for i in range(5))
+
+    return ([d["rows"] for d in draws], up(lambda d: d["rows"], 1 << mu_rows),
+            sc("sc1", mu_x, 3), up(lambda d: d["abc"], 4), up(lambda d: d["prod"], 5),
+            up(lambda d: d["eq1_a"]), sc("sc2", mu_y, 2))
 
 
-@torch.inference_mode()
+def _first(uploads: tuple) -> tuple:
+    """_zk_uploads of one instance without its batch axis (views)."""
+    row_ints, *rest = uploads
+    return (row_ints[0],) + tuple(
+        tuple(x[0] for x in u) if isinstance(u, tuple) else u[0] for u in rest)
+
+
 def prove_zk(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list,
              seed: bytes | None = None):
     """Drop-in replacement for zknizk.prove (same seed -> byte-identical
-    proof), with two device->host transfers whatever the instance's size."""
-    from .pedersen_host import BlindSource
-    from .zkfused import _mid_tables, _round_tables, assemble_zk_proof
-    from .zknizk import PROTO as ZK_PROTO
+    proof), with two device->host transfers whatever the instance's size:
+    a batch of one (batched.prove_many_zk)."""
+    from .batched import prove_many_zk
 
-    device = dev.device
-    rng = BlindSource(seed or os.urandom(32))
-    nvp = dev.num_vars
-    mu_rows, mu_cols = _hyrax_dims(nvp)
-    mu_x = (dev.num_cons - 1).bit_length()
-    row_ints, row_blinds, sc1, abc, prod, eq1_a, sc2 = _zk_uploads(rng, dev, mu_rows)
-
-    t = Transcript(ZK_PROTO)
-    t.append_message(b"R1CS", dev.digest)
-    t.append_u64(b"num_inputs", len(inputs_ints))
-    for x in inputs_ints:
-        t.append_scalar(b"input", _sb(x))
-
-    metrics.add("constraints", dev.num_cons)
-    metrics.add("msm_points", nvp)
-    vars_padded = list(vars_ints) + [0] * (nvp - len(vars_ints))
-
-    # ---- blinded commitment + encodings (host transfer 1) ------------------
-    w_flat = nizk._vec(vars_padded, device)
-    W = w_flat.reshape(1 << mu_rows, 1 << mu_cols, -1)
-    with metrics.timed("commit"):
-        comm_enc = commitments.encode_points(commitments.commit_rows(W, row_ints, GENS_LABEL))
-    for enc in comm_enc:
-        t.append_point(b"poly_commitment", enc)
-    tau = t.challenge_vector(b"challenge_tau", mu_x)
-
-    # ---- the device chain (no host sync), then transfer 2 ------------------
-    with metrics.timed("device_chain"):
-        td = _check_handoff(t, device)
-        z = r1cs.assemble_z(w_flat, nizk._vec(inputs_ints, device) if inputs_ints else None, nvp)
-        tau_dev = nizk._vec(tau, device)
-        tbls = (_round_tables(3, device), _mid_tables(device), _round_tables(2, device))
-        with _no_host_sync(device):
-            out = _zk_device_chain(dev, td, tau_dev, z, w_flat, row_blinds, sc1, abc, prod,
-                                   eq1_a, sc2, tbls, mu_rows, mu_cols)
-        with metrics.timed("fetch"):
-            got = _fetch_zk(out)
-    metrics.add("sumcheck_rounds", mu_x)
-
-    with metrics.timed("host_tail"):
-        return assemble_zk_proof(dev, rng, comm_enc, got)
+    return prove_many_zk([dev], [vars_ints], [inputs_ints],
+                         seeds=[seed] if seed else None)[0]

@@ -15,13 +15,17 @@ from ..field import ops as F
 
 
 def eq_table(r_limbs: torch.Tensor) -> torch.Tensor:
-    """[mu, 22] challenges -> [2^mu, 22] table of eq(r, x) (semi form)."""
-    tbl = F.ones(SCALAR, (1,), r_limbs.device).contiguous()
-    for j in range(r_limbs.shape[0]):
-        hi = F.mul(SCALAR, tbl, r_limbs[j])  # shared scalar: broadcast operand
+    """[..., mu, 22] challenges -> [..., 2^mu, 22] tables of eq(r, x) (semi
+    form); a leading batch axis gives one table an instance, in the same
+    launches as one table."""
+    lead = tuple(r_limbs.shape[:-2])
+    tbl = F.ones(SCALAR, lead + (1,), r_limbs.device).contiguous()
+    for j in range(r_limbs.shape[-2]):
+        # r_j is [1, 22] (one table: a shared operand) or [B, 1, 22]
+        hi = F.mul(SCALAR, tbl, r_limbs[..., j : j + 1, :])
         lo = F.sub(SCALAR, tbl, hi)  # tbl * (1 - r_j)
         # new index = old index * 2 + x_j: interleave lo / hi
-        tbl = torch.stack([lo, hi], dim=1).reshape(-1, lo.shape[-1])
+        tbl = torch.stack([lo, hi], dim=-2).reshape(lead + (-1, lo.shape[-1]))
     return tbl
 
 

@@ -1,9 +1,10 @@
 """R1CS instance + device sparse products (port of otti_tpu/spartan/r1cs.py).
 
 ``R1CSShape`` is host-only and a copy of the JAX package's class (that
-module imports jax); ``to_device(device)`` gives an ``R1CSDevice`` whose
-three matrices are COO tensors: int64 row and column indices and
-``[nnz, 22]`` int32 values.  Every product is a gather, the multiply
+module imports jax); ``to_device(device, min_cons, min_vars)`` gives an
+``R1CSDevice`` whose three matrices are COO tensors: int64 row and column
+indices and ``[nnz, 22]`` int32 values, and ``R1CSDevice.stack`` joins B
+of them for batched proving.  Every product is a gather, the multiply
 kernel, an exact int64 ``index_add_`` of the canonical products and one
 wide reduction.
 
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 import random
 
 import numpy as np
@@ -93,19 +95,29 @@ class R1CSShape:
         )
         return hashlib.sha3_256(bytes(meta + h)).digest()
 
-    def to_device(self, device) -> "R1CSDevice":
+    def to_device(self, device, min_cons: int = 1, min_vars: int = 1) -> "R1CSDevice":
+        """``min_cons`` / ``min_vars`` force a larger power-of-two padding, so
+        that instances of neighbouring sizes share one batched prover
+        (spartan/batched.py); the digest stays the shape's."""
+        nvp = max(self.num_vars_padded, _next_pow2(min_vars))
+        old_npad = self.num_vars_padded
+
+        def remap_col(c: int) -> int:
+            # entries are wired against the natural padding: a larger one
+            # shifts the io half (the constant one and the inputs)
+            return c if c < old_npad else nvp + (c - old_npad)
+
         def pack(mat):
             n = len(mat)
             rows = torch.tensor([e[0] for e in mat], dtype=torch.int64)
-            cols = torch.tensor([e[1] for e in mat], dtype=torch.int64)
+            cols = torch.tensor([remap_col(e[1]) for e in mat], dtype=torch.int64)
             vals = np.zeros((n, N_LIMBS), np.int32)
             if n:
                 vals[:] = ints_to_limbs([e[2] for e in mat])
             return (rows.to(device), cols.to(device), torch.from_numpy(vals).to(device))
 
-        nvp = self.num_vars_padded
         return R1CSDevice(
-            num_cons=self.num_cons_padded,
+            num_cons=max(self.num_cons_padded, _next_pow2(min_cons)),
             num_z=2 * nvp,
             num_vars=nvp,
             num_inputs=self.num_inputs,
@@ -131,58 +143,109 @@ class R1CSShape:
 
 @dataclasses.dataclass
 class R1CSDevice:
-    """Device-resident padded R1CS (COO tensors on one device)."""
+    """Device-resident padded R1CS (COO tensors on one device).
+
+    ``stack`` joins B instances of equal padded dimensions into one with
+    instance-offset indices (row + b * num_cons, col + b * num_z), so that
+    every product below takes a leading batch axis ([B, ..., 22] in, out)
+    and is still one gather, one multiply and one ``index_add_``; one
+    instance is the case without that axis."""
 
     num_cons: int  # padded
     num_z: int  # 2 * num_vars_padded
     num_vars: int  # padded
-    num_inputs: int
+    num_inputs: int  # None for a stack: each instance keeps its own
     mats: tuple  # ((rows int64, cols int64, vals [nnz, 22] int32) for A, B, C)
-    digest: bytes
+    digest: bytes  # None for a stack
+
+    @staticmethod
+    def stack(devs: list) -> "R1CSDevice":
+        """B instances as one: nnz padded by value-0 entries (at row 0, column
+        0 of their instance, where they add nothing).  One instance is
+        returned as it is."""
+        d0 = devs[0]
+        if any((d.num_cons, d.num_z, d.num_vars) != (d0.num_cons, d0.num_z, d0.num_vars)
+               for d in devs):
+            raise ValueError("batched proving requires equal padded dimensions")
+        if len(devs) == 1:
+            return d0
+        nb = len(devs)
+        mats = []
+        for m in range(3):  # stacked on the device: copies there, no transfer
+            nnz = max(max(d.mats[m][0].shape[0] for d in devs), 1)
+            rows = torch.zeros((nb, nnz), dtype=torch.int64, device=d0.device)
+            cols = torch.zeros((nb, nnz), dtype=torch.int64, device=d0.device)
+            vals = torch.zeros((nb, nnz, N_LIMBS), dtype=torch.int32, device=d0.device)
+            off = torch.arange(nb, device=d0.device)[:, None]
+            rows += off * d0.num_cons
+            cols += off * d0.num_z
+            for b, d in enumerate(devs):
+                r, c, v = d.mats[m]
+                k = r.shape[0]
+                rows[b, :k] += r
+                cols[b, :k] += c
+                vals[b, :k] = v
+            mats.append((rows.reshape(-1), cols.reshape(-1), vals.reshape(-1, N_LIMBS)))
+        return R1CSDevice(num_cons=d0.num_cons, num_z=d0.num_z, num_vars=d0.num_vars,
+                          num_inputs=None, mats=tuple(mats), digest=None)
 
     @property
     def device(self) -> torch.device:
         return self.mats[0][2].device
 
-    def _segment_sum(self, prods: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
-        acc = torch.zeros((n, N_LIMBS), dtype=torch.int64, device=prods.device)
+    @staticmethod
+    def _segment_sum(prods: torch.Tensor, index: torch.Tensor, lead: tuple,
+                     n: int) -> torch.Tensor:
+        """Exact int64 sums of canonical products into the rows of
+        lead + (n,) -> lead + (n, 22)."""
+        acc = torch.zeros((math.prod(lead) * n, N_LIMBS), dtype=torch.int64, device=prods.device)
         acc.index_add_(0, index, prods.to(torch.int64))
-        return F.reduce_wide(SCALAR, acc)
+        return F.reduce_wide(SCALAR, acc).reshape(lead + (n, N_LIMBS))
 
     def matvecs(self, z: torch.Tensor) -> tuple:
-        """(Az, Bz, Cz): [num_z, 22] -> three [num_cons, 22]."""
+        """(Az, Bz, Cz): [..., num_z, 22] -> three [..., num_cons, 22]."""
+        lead, z_flat = tuple(z.shape[:-2]), z.reshape(-1, N_LIMBS)
         return tuple(
-            self._segment_sum(F.mul(SCALAR, vals, z[cols]), rows, self.num_cons)
+            self._segment_sum(F.mul(SCALAR, vals, z_flat[cols]), rows, lead, self.num_cons)
             for rows, cols, vals in self.mats
         )
 
     def matvec_T_weighted(self, weights: tuple, e_rx: torch.Tensor) -> torch.Tensor:
         """Phase-2 table M(y) = sum_m w_m sum_{(r, y, v) in M_m} e_rx[r] v;
-        weights: 3 limb vectors [22]."""
+        weights: 3 limb vectors [..., 22], e_rx [..., num_cons, 22] ->
+        [..., num_z, 22]."""
+        lead, e_flat = tuple(e_rx.shape[:-2]), e_rx.reshape(-1, N_LIMBS)
         acc = None
         for w, (rows, cols, vals) in zip(weights, self.mats):
-            prods = F.mul(SCALAR, F.mul(SCALAR, vals, e_rx[rows]), w)
-            part = self._segment_sum(prods, cols, self.num_z)
+            prods = F.mul(SCALAR, vals, e_flat[rows]).reshape(lead + (-1, N_LIMBS))
+            prods = F.mul(SCALAR, prods, w[..., None, :])
+            part = self._segment_sum(prods.reshape(-1, N_LIMBS), cols, lead, self.num_z)
             acc = part if acc is None else F.add(SCALAR, acc, part)
         return acc
 
     def eval_at(self, e_rx: torch.Tensor, e_ry: torch.Tensor) -> tuple:
-        """(A~(rx, ry), B~, C~) from the eq tables of rx and ry."""
+        """(A~(rx, ry), B~, C~) from the eq tables of rx and ry: three [..., 22]."""
+        lead = tuple(e_rx.shape[:-2])
+        erx, ery = e_rx.reshape(-1, N_LIMBS), e_ry.reshape(-1, N_LIMBS)
         return tuple(
-            F.sum_reduce(SCALAR, F.mul(SCALAR, F.mul(SCALAR, vals, e_rx[rows]), e_ry[cols]))
+            F.sum_reduce(SCALAR, F.mul(SCALAR, F.mul(SCALAR, vals, erx[rows]), ery[cols])
+                         .reshape(lead + (-1, N_LIMBS)), axis=-2)
             for rows, cols, vals in self.mats
         )
 
 
 def assemble_z(vars_limbs: torch.Tensor, inputs_limbs, num_vars_padded: int) -> torch.Tensor:
-    """(vars | 1 | inputs | 0) -> [2 * num_vars_padded, 22]."""
+    """(vars | 1 | inputs | 0): vars [..., nv, 22], inputs [..., n_in, 22] or
+    None -> [..., 2 * num_vars_padded, 22]."""
     dev = vars_limbs.device
-    z = torch.zeros((2 * num_vars_padded, N_LIMBS), dtype=torch.int32, device=dev)
-    nv = vars_limbs.shape[0]
-    z[:nv] = vars_limbs
-    z[num_vars_padded] = F.ones(SCALAR, (), dev)
-    if inputs_limbs is not None and inputs_limbs.shape[0]:
-        z[num_vars_padded + 1 : num_vars_padded + 1 + inputs_limbs.shape[0]] = inputs_limbs
+    lead = tuple(vars_limbs.shape[:-2])
+    z = torch.zeros(lead + (2 * num_vars_padded, N_LIMBS), dtype=torch.int32, device=dev)
+    nv = vars_limbs.shape[-2]
+    z[..., :nv, :] = vars_limbs
+    z[..., num_vars_padded, :] = F.ones(SCALAR, (), dev)
+    if inputs_limbs is not None and inputs_limbs.shape[-2]:
+        z[..., num_vars_padded + 1 : num_vars_padded + 1 + inputs_limbs.shape[-2], :] = \
+            inputs_limbs
     return z
 
 

@@ -37,7 +37,7 @@ from .. import metrics
 from ..curve import edwards as E
 from ..curve import ristretto
 from ..field import ops as F
-from ..field.fields import SCALAR, ints_to_limbs, limbs_to_int
+from ..field.fields import N_LIMBS, SCALAR, ints_to_limbs, limbs_to_int
 from ..msm import pippenger
 from ..transcript.device import DeviceTranscript
 from ..transcript.merlin import Transcript
@@ -111,73 +111,84 @@ def _mid_tables(device) -> dict:
     return pippenger.fixed_base_tables(1, GENS_LABEL, True, device)
 
 
+def _commit_batch(tbl: dict, n_gens: int, rows: list) -> dict:
+    """Rows of n_gens + 1 scalars (the blind last), each [22] or [B, 22] ->
+    points [len(rows)] ([B, len(rows)]) over G_0..G_{n_gens-1}, H: one comb
+    MSM for all B instances' rows."""
+    mat = torch.stack([torch.stack(r, dim=-2) for r in rows], dim=-3)
+    pts = pippenger.msm_fixed_base(n_gens, GENS_LABEL, mat.reshape(-1, n_gens + 1, N_LIMBS),
+                                   with_blind=True, tbl=tbl)
+    return E.tree_map(lambda a: a.reshape(tuple(mat.shape[:-2]) + (N_LIMBS,)), pts)
+
+
 def _zk_round_from_evals(label: bytes, degree: int, tbl: dict, t: DeviceTranscript, e, be,
                          evs, xs):
     """One zk round's commitments, transcript and sigma arithmetic, given the
     round's evaluations ``evs`` = [p(0), p(2)(, p(3))] (p(1) follows from the
     running claim ``e``); the tables are the caller's.  ``xs`` = (b_poly,
     b_next, d [degree+1, 22], r_delta, r_beta).  Advances ``t``; returns
-    (e_next, b_next, r, encs [4, 32], z [degree+1, 22], zdb [2, 22])."""
+    (e_next, b_next, r, encs [4, 32], z [degree+1, 22], zdb [2, 22]).  With
+    a transcript of B states every argument and result has a leading axis B,
+    and each commitment kind is one MSM and one encoding for the batch."""
     b_poly, b_next, d_vec, r_delta, r_beta = xs
     dev = e.device
-    zero = F.zeros((), dev)
-    ev = torch.cat([evs[:1], F.canon(SCALAR, F.sub(SCALAR, e, evs[0]))[None], evs[1:]])
-    coeffs = F.sum_reduce(SCALAR, F.mul(SCALAR, _vandermonde_inv_limbs(degree, dev), ev[None]),
-                          axis=1)  # [degree+1, 22]
+    zero = F.zeros(tuple(e.shape[:-1]), dev)
+    ev = torch.cat([evs[..., :1, :], F.canon(SCALAR, F.sub(SCALAR, e, evs[..., 0, :]))[..., None, :],
+                    evs[..., 1:, :]], dim=-2)
+    coeffs = F.sum_reduce(SCALAR, F.mul(SCALAR, _vandermonde_inv_limbs(degree, dev),
+                                        ev[..., None, :, :]), axis=-2)  # [degree+1, 22]
     pad = [zero] * degree
 
     def commit_batch(rows):
         """rows of degree + 2 scalars (the blind last) -> points over G_0..G_degree, H."""
-        return pippenger.msm_fixed_base(
-            degree + 1, GENS_LABEL, torch.stack([torch.stack(r) for r in rows]),
-            with_blind=True, tbl=tbl)
+        return _commit_batch(tbl, degree + 1, rows)
 
     assert t.strobe.offsets == _POST_CHALLENGE, "round not at the post-challenge offsets"
     # group 1 (independent of every challenge): C_poly and delta
     enc_g1 = ristretto.encode(commit_batch(
-        [list(coeffs) + [b_poly], list(d_vec) + [r_delta]]))
-    enc_poly, enc_delta = enc_g1[0], enc_g1[1]
+        [list(coeffs.unbind(-2)) + [b_poly], list(d_vec.unbind(-2)) + [r_delta]]))
+    enc_poly, enc_delta = enc_g1[..., 0, :], enc_g1[..., 1, :]
     t.append_message(label + b"/comm_poly", enc_poly)
     r = t.challenge_scalar_limbs(label + b"/r")
 
-    e_next = coeffs[-1]  # Horner
+    e_next = coeffs[..., -1, :]  # Horner
     for k in range(degree - 1, -1, -1):
-        e_next = F.add(SCALAR, coeffs[k], F.mul(SCALAR, r, e_next))
-    enc_next = ristretto.encode(commit_batch([[e_next] + pad + [b_next]]))[0]
+        e_next = F.add(SCALAR, coeffs[..., k, :], F.mul(SCALAR, r, e_next))
+    enc_next = ristretto.encode(commit_batch([[e_next] + pad + [b_next]]))[..., 0, :]
     t.append_message(label + b"/comm_eval", enc_next)
     w0 = t.challenge_scalar_limbs(label + b"/w0")
     w1 = t.challenge_scalar_limbs(label + b"/w1")
 
     # weight vector a = w0 (2, 1, .., 1) + w1 (1, r, r^2, ...)
     a = []
-    r_pow = F.ones(SCALAR, (), dev)
+    r_pow = F.ones(SCALAR, tuple(e.shape[:-1]), dev)
     for k in range(degree + 1):
         base = F.add(SCALAR, w0, w0) if k == 0 else w0
         a.append(F.canon(SCALAR, F.add(SCALAR, base, F.mul(SCALAR, w1, r_pow))))
         if k < degree:
             r_pow = F.mul(SCALAR, r_pow, r)
-    a = torch.stack(a)
+    a = torch.stack(a, dim=-2)
 
     # DotProductProof: ties the committed coefficients to the committed claims
     t.append_message(b"protocol-name", b"dot product proof")
     t.append_message(b"Cx", enc_poly)
     y = F.add(SCALAR, F.mul(SCALAR, w0, e), F.mul(SCALAR, w1, e_next))
     ry_b = F.add(SCALAR, F.mul(SCALAR, w0, be), F.mul(SCALAR, w1, b_next))
-    dy = F.dot(SCALAR, d_vec, a)
+    dy = F.dot(SCALAR, d_vec, a, axis=-2)
     # group 3 (needs w0, w1): C_y and beta
     enc_g3 = ristretto.encode(commit_batch([[y] + pad + [ry_b], [dy] + pad + [r_beta]]))
-    t.append_message(b"Cy", enc_g3[0])
-    enc_beta = enc_g3[1]
-    for ak in a:
+    t.append_message(b"Cy", enc_g3[..., 0, :])
+    enc_beta = enc_g3[..., 1, :]
+    for ak in a.unbind(-2):
         t.append_scalar_limbs(b"a", ak)
     t.append_message(b"delta", enc_delta)
     t.append_message(b"beta", enc_beta)
-    c = t.challenge_scalar_limbs(b"c")
+    c = t.challenge_scalar_limbs(b"c")[..., None, :]  # [1, 22]: a shared operand
 
     z = F.canon(SCALAR, F.add(SCALAR, F.mul(SCALAR, c, coeffs), d_vec))
-    zdb = F.canon(SCALAR, F.add(SCALAR, F.mul(SCALAR, c, torch.stack([b_poly, ry_b])),
-                                torch.stack([r_delta, r_beta])))
-    encs = torch.stack([enc_poly, enc_next, enc_delta, enc_beta])
+    zdb = F.canon(SCALAR, F.add(SCALAR, F.mul(SCALAR, c, torch.stack([b_poly, ry_b], dim=-2)),
+                                torch.stack([r_delta, r_beta], dim=-2)))
+    encs = torch.stack([enc_poly, enc_next, enc_delta, enc_beta], dim=-2)
     return e_next, b_next, r, encs, z, zdb
 
 
@@ -188,33 +199,38 @@ def _zk_round_scan(t: DeviceTranscript, label: bytes, degree: int, tbl: dict, ta
     does the rest.  ``blinds`` = per-round (b_poly, b_next, d, r_delta,
     r_beta) stacked over the rounds.  Mirrors zksumcheck.prove_zk and
     sigma.DotProductProof.prove message for message.  Returns (e, be, encs
-    [mu, 4, 32], z [mu, degree+1, 22], zdb [mu, 2, 22], rs [mu, 22])."""
-    n = tables[0].shape[0]
+    [mu, 4, 32], z [mu, degree+1, 22], zdb [mu, 2, 22], rs [mu, 22]); with
+    [B, n, 22] tables the blinds and results have a leading axis B."""
+    lead = tuple(tables[0].shape[:-2])
+    ax = len(lead)  # the rounds' axis
+    n = tables[0].shape[-2]
     mu = (n - 1).bit_length()
     dev = tables[0].device
     if mu == 0:
-        return (e, be, torch.zeros((0, 4, 32), dtype=torch.uint8, device=dev),
-                F.zeros((0, degree + 1), dev), F.zeros((0, 2), dev), F.zeros((0,), dev))
+        return (e, be, torch.zeros(lead + (0, 4, 32), dtype=torch.uint8, device=dev),
+                F.zeros(lead + (0, degree + 1), dev), F.zeros(lead + (0, 2), dev),
+                F.zeros(lead + (0,), dev))
     evs = sumcheck_round(tables, degree)
     encs, zs, zdbs, rs = [], [], [], []
     active = n
     for j in range(mu):
         e, be, r, enc, z, zdb = _zk_round_from_evals(
-            label, degree, tbl, t, e, be, evs, tuple(b[j] for b in blinds))
+            label, degree, tbl, t, e, be, evs, tuple(b.select(ax, j) for b in blinds))
         encs.append(enc)
         zs.append(z)
         zdbs.append(zdb)
         rs.append(r)
         evs = sumcheck_round(tables, degree, r, active // 2)
         active //= 2
-    return e, be, torch.stack(encs), torch.stack(zs), torch.stack(zdbs), torch.stack(rs)
+    return (e, be, torch.stack(encs, dim=ax), torch.stack(zs, dim=ax),
+            torch.stack(zdbs, dim=ax), torch.stack(rs, dim=ax))
 
 
 def _prod_eq(vals: torch.Tensor) -> torch.Tensor:
-    """prod_i vals[i] over a [mu, 22] array -> [22]."""
-    acc = vals[0]
-    for i in range(1, vals.shape[0]):
-        acc = F.mul(SCALAR, acc, vals[i])
+    """prod_i vals[..., i, :] over a [..., mu, 22] array -> [..., 22]."""
+    acc = vals[..., 0, :]
+    for i in range(1, vals.shape[-2]):
+        acc = F.mul(SCALAR, acc, vals[..., i, :])
     return acc
 
 
@@ -223,12 +239,14 @@ def _mid_zk(t: DeviceTranscript, tau, rxs, vA, vB, vC, abc_blinds, prod_blinds, 
     """The inter-phase zk section: claim commitments CA/CB/CC, the product
     sigma proof for vA * vB, the phase-1 equality proof, and the phase-2
     challenges.  Advances ``t``; returns (mid_encs [8, 32], mid_z [6, 22],
-    rabc [3, 22], claim2, bclaim2)."""
+    rabc [3, 22], claim2, bclaim2), each with a leading axis B for a
+    transcript of B states."""
     dev = vA.device
+    lead = tuple(vA.shape[:-1])
     one = F.ones(SCALAR, (), dev)
-    zero = F.zeros((), dev)
-    bA, bB, bC, b_ab = abc_blinds.unbind(0)
-    b1, b2, b3, b4, b5 = prod_blinds.unbind(0)
+    zero = F.zeros(lead, dev)
+    bA, bB, bC, b_ab = abc_blinds.unbind(-2)
+    b1, b2, b3, b4, b5 = prod_blinds.unbind(-2)
     v_ab = F.mul(SCALAR, vA, vB)
     eq_terms = F.add(SCALAR, F.mul(SCALAR, tau, rxs),
                      F.mul(SCALAR, F.sub(SCALAR, one, tau), F.sub(SCALAR, one, rxs)))
@@ -243,14 +261,13 @@ def _mid_zk(t: DeviceTranscript, tau, rxs, vA, vB, vC, abc_blinds, prod_blinds, 
         [b1, b2], [b3, b4], [zero, b5],
         [e1, be1], [e1, r2_eq1], [zero, eq1_a],
     ]
-    batch = pippenger.msm_fixed_base(1, GENS_LABEL, torch.stack([torch.stack(r) for r in rows]),
-                                     with_blind=True, tbl=tbl_mid)
-    CA = E.tree_map(lambda a: a[0], batch)
-    delta_p = E.add(E.scalar_mul(CA, b3), E.tree_map(lambda a: a[6], batch))
-    all_pts = E.tree_map(lambda b, d: torch.cat([b, d[None]], dim=0), batch, delta_p)
+    batch = _commit_batch(tbl_mid, 1, rows)
+    CA = E.tree_map(lambda a: a[..., 0, :], batch)
+    delta_p = E.add(E.scalar_mul(CA, b3), E.tree_map(lambda a: a[..., 6, :], batch))
+    all_pts = E.tree_map(lambda b, d: torch.cat([b, d[..., None, :]], dim=-2), batch, delta_p)
     encs = ristretto.encode(all_pts)  # [11, 32]
     (enc_CA, enc_CB, enc_CC, enc_Cab, enc_alpha_p, enc_beta_p, _,
-     enc_C1, enc_C2, enc_alpha_eq1, enc_delta_p) = encs.unbind(0)
+     enc_C1, enc_C2, enc_alpha_eq1, enc_delta_p) = encs.unbind(-2)
 
     t.append_message(b"CA", enc_CA)
     t.append_message(b"CB", enc_CB)
@@ -265,8 +282,8 @@ def _mid_zk(t: DeviceTranscript, tau, rxs, vA, vB, vC, abc_blinds, prod_blinds, 
     t.append_message(b"beta", enc_beta_p)
     t.append_message(b"delta", enc_delta_p)
     c = t.challenge_scalar_limbs(b"c")
-    z1234 = F.add(SCALAR, torch.stack([b1, b2, b3, b4]),
-                  F.mul(SCALAR, c, torch.stack([vA, bA, vB, bB])))
+    z1234 = F.add(SCALAR, torch.stack([b1, b2, b3, b4], dim=-2),
+                  F.mul(SCALAR, c[..., None, :], torch.stack([vA, bA, vB, bB], dim=-2)))
     z5 = F.add(SCALAR, b5, F.mul(SCALAR, c, F.sub(SCALAR, b_ab, F.mul(SCALAR, bA, vB))))
 
     # EqualityProof: e1 vs eq(tau, rx) * (vAB - vC)
@@ -279,12 +296,14 @@ def _mid_zk(t: DeviceTranscript, tau, rxs, vA, vB, vC, abc_blinds, prod_blinds, 
 
     # ---- phase-2 challenges + committed claim2 ----------------------------
     rabc = torch.stack([t.challenge_scalar_limbs(lbl)
-                        for lbl in (b"challenge_Az", b"challenge_Bz", b"challenge_Cz")])
-    claim2 = F.sum_reduce(SCALAR, F.mul(SCALAR, rabc, torch.stack([vA, vB, vC])))
-    bclaim2 = F.sum_reduce(SCALAR, F.mul(SCALAR, rabc, torch.stack([bA, bB, bC])))
+                        for lbl in (b"challenge_Az", b"challenge_Bz", b"challenge_Cz")], dim=-2)
+    claim2 = F.sum_reduce(SCALAR, F.mul(SCALAR, rabc, torch.stack([vA, vB, vC], dim=-2)),
+                          axis=-2)
+    bclaim2 = F.sum_reduce(SCALAR, F.mul(SCALAR, rabc, torch.stack([bA, bB, bC], dim=-2)),
+                           axis=-2)
     mid_encs = torch.stack([enc_CA, enc_CB, enc_CC, enc_Cab, enc_alpha_p, enc_beta_p,
-                            enc_delta_p, enc_alpha_eq1])
-    mid_z = F.canon(SCALAR, torch.cat([z1234, z5[None], z_eq1[None]]))
+                            enc_delta_p, enc_alpha_eq1], dim=-2)
+    mid_z = F.canon(SCALAR, torch.cat([z1234, z5[..., None, :], z_eq1[..., None, :]], dim=-2))
     return mid_encs, mid_z, rabc, claim2, bclaim2
 
 
@@ -314,14 +333,14 @@ def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list,
           seed: bytes | None = None) -> ZKNIZKProof:
     """Drop-in replacement for zknizk.prove: same seed -> byte-identical
     proof, verified by zknizk.verify; one fetch from the device."""
-    from .hybrid import _fetch_zk, _no_host_sync, _zk_uploads
+    from .hybrid import _fetch_zk, _first, _no_host_sync, _zk_uploads
     from .pedersen_host import BlindSource
 
     device = dev.device
     rng = BlindSource(seed or os.urandom(32))
     nvp = dev.num_vars
     mu_rows, mu_cols = _hyrax_dims(nvp)
-    _, row_blinds, sc1, abc, prod, eq1_a, sc2 = _zk_uploads(rng, dev, mu_rows)
+    _, row_blinds, sc1, abc, prod, eq1_a, sc2 = _first(_zk_uploads([rng], dev, mu_rows))
 
     t = Transcript(PROTO)
     t.append_message(b"R1CS", dev.digest)

@@ -12,7 +12,8 @@ is absorbed and squeezed, and in the Spartan schedule those lengths are
 fixed by the instance's shape (labels, 32-byte scalars and points, 64-byte
 challenges).  So ``pos`` / ``pos_begin`` / ``cur_flags`` stay Python ints on
 the host, and only the 200-byte sponge state is a ``uint8[200]`` tensor on
-the device.  Every strobe operation is a torch op on that tensor at offsets
+the device (``[B, 200]`` for B instances of one shape proved side by side,
+spartan/batched.py: their offsets are the same).  Every strobe operation is a torch op on that tensor at offsets
 known on the host (an XOR, a copy, a zeroing), updating it in place; the
 pad and the permutation are kernel K3 (``keccak_f1600_bytes``).  The
 constant bytes an operation absorbs (labels, lengths, framing) are uploaded
@@ -210,15 +211,21 @@ def _pad_bytes(pos: int, pos_begin: int, device) -> torch.Tensor:
 def _as_u8(data, device) -> torch.Tensor:
     if isinstance(data, (bytes, bytearray)):
         return _const_bytes(data, device)
-    if data.dtype != U8 or data.dim() != 1:
-        raise ValueError("device transcript data: bytes or a uint8 [n] tensor")
+    if data.dtype != U8 or data.dim() not in (1, 2):
+        raise ValueError("device transcript data: bytes, or a uint8 [n] or [B, n] tensor")
     return data
 
 
 class DeviceStrobe:
     """STROBE-128 duplex whose state is a uint8[200] tensor, updated in
     place; ``pos`` / ``pos_begin`` / ``cur_flags`` are Python ints.  Mirrors
-    transcript/merlin.py Strobe128 operation for operation."""
+    transcript/merlin.py Strobe128 operation for operation.
+
+    A state [B, 200] runs B duplexes side by side at the same offsets (B
+    instances of one padded shape, each at the post-challenge offsets when
+    handed over): what an operation absorbs is [B, n] per instance or
+    bytes shared by all, a squeeze returns [B, n], and one K3 launch
+    permutes all B states."""
 
     def __init__(self, protocol_label: bytes = None, device="cpu", _raw=None):
         if _raw is not None:
@@ -231,9 +238,10 @@ class DeviceStrobe:
 
     @classmethod
     def from_state(cls, state: torch.Tensor, pos: int, pos_begin: int, cur_flags: int):
-        """Resume from a state (copied: the strobe updates its own in place)."""
-        if state.shape != (200,):
-            raise ValueError(f"strobe state must be [200], got {tuple(state.shape)}")
+        """Resume from a state [200] or B states [B, 200] (copied: the strobe
+        updates its own in place)."""
+        if state.dim() not in (1, 2) or state.shape[-1] != 200:
+            raise ValueError(f"strobe state must be [200] or [B, 200], got {tuple(state.shape)}")
         return cls(_raw=(state.to(U8).clone(), int(pos), int(pos_begin), int(cur_flags)))
 
     @property
@@ -248,10 +256,10 @@ class DeviceStrobe:
 
     def _absorb(self, data):
         data = _as_u8(data, self.state.device)
-        n, i = data.shape[0], 0
+        n, i = data.shape[-1], 0
         while i < n:
             take = min(n - i, _RATE - self.pos)
-            self.state[self.pos : self.pos + take] ^= data[i : i + take]
+            self.state[..., self.pos : self.pos + take] ^= data[..., i : i + take]
             self.pos += take
             i += take
             if self.pos == _RATE:
@@ -259,10 +267,10 @@ class DeviceStrobe:
 
     def _overwrite(self, data):
         data = _as_u8(data, self.state.device)
-        n, i = data.shape[0], 0
+        n, i = data.shape[-1], 0
         while i < n:
             take = min(n - i, _RATE - self.pos)
-            self.state[self.pos : self.pos + take] = data[i : i + take]
+            self.state[..., self.pos : self.pos + take] = data[..., i : i + take]
             self.pos += take
             i += take
             if self.pos == _RATE:
@@ -272,13 +280,13 @@ class DeviceStrobe:
         outs, got = [], 0
         while got < n:
             take = min(n - got, _RATE - self.pos)
-            outs.append(self.state[self.pos : self.pos + take].clone())
-            self.state[self.pos : self.pos + take] = 0
+            outs.append(self.state[..., self.pos : self.pos + take].clone())
+            self.state[..., self.pos : self.pos + take] = 0
             self.pos += take
             got += take
             if self.pos == _RATE:
                 self._run_f()
-        return outs[0] if len(outs) == 1 else torch.cat(outs)
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
     def _begin_op(self, flags: int, more: bool):
         if more:
@@ -395,7 +403,7 @@ class DeviceTranscript:
         return self.strobe.state.device
 
     def append_message(self, label: bytes, message):
-        n = len(message) if isinstance(message, (bytes, bytearray)) else message.shape[0]
+        n = len(message) if isinstance(message, (bytes, bytearray)) else message.shape[-1]
         self.strobe.meta_ad(label, False)
         self.strobe.meta_ad(_le32(n), True)
         self.strobe.ad(message, False)
@@ -404,7 +412,8 @@ class DeviceTranscript:
         self.append_message(label, value.to_bytes(8, "little"))
 
     def append_scalar_limbs(self, label: bytes, canon_limbs: torch.Tensor):
-        """Absorb a canonical limb vector [22] as its 32-byte LE encoding."""
+        """Absorb a canonical limb vector [22] (one a state: [B, 22]) as its
+        32-byte LE encoding."""
         self.append_message(label, limbs_to_bytes32(canon_limbs))
 
     def append_point_bytes(self, label: bytes, enc32):
@@ -416,13 +425,14 @@ class DeviceTranscript:
         return self.strobe.prf(n, False)
 
     def challenge_scalar_limbs(self, label: bytes) -> torch.Tensor:
-        """64-byte PRF reduced mod l -> canonical limbs [22]."""
+        """64-byte PRF reduced mod l -> canonical limbs [22] ([B, 22])."""
         return bytes64_to_scalar_limbs(self.challenge_bytes(label, 64))
 
     def challenge_vector_limbs(self, label: bytes, n: int) -> torch.Tensor:
+        """n challenges -> [n, 22] ([B, n, 22])."""
         if n == 0:
-            return F.zeros((0,), self.device)
-        return torch.stack([self.challenge_scalar_limbs(label) for _ in range(n)])
+            return F.zeros(tuple(self.strobe.state.shape[:-1]) + (0,), self.device)
+        return torch.stack([self.challenge_scalar_limbs(label) for _ in range(n)], dim=-2)
 
     def export(self) -> tuple:
         """(a copy of the state, pos, pos_begin, cur_flags)."""

@@ -100,6 +100,22 @@ def test_commit_rows_and_encodings_match_jax(jax_comb_table):
     assert TC.encode_points(TC.commit_rows(convert.limbs(W), [0] * rows, LABEL)) == want
 
 
+@pytest.mark.parametrize("blinded", [False, True])
+def test_comb_msm_in_passes_of_rows_is_one_pass(monkeypatch, blinded):
+    """A matrix of more points than MSM_PASS_POINTS goes through the comb
+    MSM in passes of rows (here 2 rows a pass, the last pass short) and
+    gives the points of one pass."""
+    rng = np.random.default_rng(6)
+    rows, cols = 7, N_GENS
+    vals = [int.from_bytes(rng.bytes(40), "little") % M for _ in range(rows * cols)]
+    W = convert.limbs(ints_to_limbs(vals).reshape(rows, cols, -1))
+    blinds = ([int.from_bytes(rng.bytes(40), "little") % M for _ in range(rows)] if blinded
+              else [0] * rows)
+    one = TC.encode_points(TC.commit_rows(W, blinds, LABEL))
+    monkeypatch.setattr(TP, "MSM_PASS_POINTS", 2 * (cols + blinded) * TP.N_WIN)
+    assert TC.encode_points(TC.commit_rows(W, blinds, LABEL)) == one
+
+
 def _instance():
     import __graft_entry__ as g
 

@@ -136,9 +136,9 @@ def test_handoff_wants_the_post_challenge_offsets():
     t = Transcript(b"handoff")
     t.append_message(b"m", b"x" * 10)
     with pytest.raises(AssertionError, match="post-challenge"):
-        hybrid._check_handoff(t, "cpu")
+        hybrid._check_handoff([t], "cpu")
     t.challenge_scalar(b"c")
-    assert hybrid._check_handoff(t, "cpu").strobe.offsets == hybrid._POST_CHALLENGE
+    assert hybrid._check_handoff([t], "cpu").strobe.offsets == hybrid._POST_CHALLENGE
 
 
 # ---- the command line -----------------------------------------------------

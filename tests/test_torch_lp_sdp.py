@@ -232,7 +232,7 @@ def test_cli_failing_instance_gives_exit_code_1(tmp_path, capsys):
     (["--lp", "--config", "x.json"], "--config is for --sgd"),
     (["--sgd", "--custom", "x.mps"], "--sgd has no --custom mode"),
     (["--lp", "--custom", "x.mps", "--mesh", "4"], "ROADMAP.md item 1.12"),
-    (["--sdp", "--custom", "x.dat-s", "--batch"], "ROADMAP.md item 1.13"),
+    (["--sdp", "--custom", "x.dat-s", "--batch", "--snark"], "mutually exclusive"),
 ])
 def test_cli_lp_sdp_refusals(tmp_path, capsys, flags, needle):
     out = tmp_path / "out"
@@ -245,7 +245,35 @@ def test_cli_lp_sdp_refusals(tmp_path, capsys, flags, needle):
 
 
 @pytest.mark.parametrize("fn", ["run_lp", "run_sdp"])
-@pytest.mark.parametrize("flag", ["mesh", "batch"])
+@pytest.mark.parametrize("flag", ["mesh"])
 def test_run_functions_refuse_unported_modes(tmp_path, fn, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        getattr(cli, fn)([], str(tmp_path), device="cpu", **{flag: 4 if flag == "mesh" else True})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.12"):
+        getattr(cli, fn)([], str(tmp_path), device="cpu", **{flag: 4})
+
+
+def test_run_lp_batch_proves_a_shape_class(lp_file, tmp_path, capsys):
+    """Two LP files of one padded shape class: one zk batch, each proof
+    verified and byte-distinct (fresh blinds), meta mode batched-zk."""
+    other = tmp_path / "lp1x2b.mps"
+    other.write_text(LP_1X2)
+    out = tmp_path / "out"
+    assert cli.run_lp([lp_file, str(other)], str(out), batch=True, device="cpu")
+    text = capsys.readouterr().out
+    assert "Batched proving 2 instance(s) (zk) (shape class 256x" in text
+    proofs = []
+    for name in ("lp1x2.mps", "lp1x2b.mps"):
+        assert "Verification successful for %s (batched)" % name in text
+        meta = _meta(out, "LP", name)
+        assert meta["mode"] == "batched-zk" and meta["verified"] and meta["batch"] == 2
+        assert meta["num_cons"] == 219
+        proofs.append(TS.load(str(out / "LP" / (name + ".proof.json"))))
+    assert TS.dumps(proofs[0]) != TS.dumps(proofs[1])
+
+
+def test_run_sdp_batch_transparent(sdp_file, tmp_path, capsys):
+    out = tmp_path / "out"
+    assert cli.run_sdp([sdp_file], str(out), zk=False, batch=True, device="cpu")
+    assert "Verification successful for r22.dat-s (batched)" in capsys.readouterr().out
+    meta = _meta(out, "SDP", "r22.dat-s")
+    assert meta["mode"] == "batched" and meta["verified"] and meta["num_cons"] == 2110
+    assert type(TS.load(str(out / "SDP" / "r22.dat-s.proof.json"))).__name__ == "NIZKProof"

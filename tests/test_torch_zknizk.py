@@ -399,7 +399,7 @@ def test_cli_resume_skips_a_verified_instance(tiny_config, capsys):
     (["--sdp"], "--config is for --sgd"),
     (["--snark", "--zk"], "--zk and --snark are mutually exclusive"),
     (["--mesh", "4"], "ROADMAP.md item 1.12"),
-    (["--batch"], "ROADMAP.md item 1.13"),
+    (["--batch", "--snark"], "--batch and --snark are mutually exclusive"),
     (["--wire", "other"], "invalid choice"),
 ])
 def test_cli_refusals(tiny_config, capsys, flags, needle):
@@ -411,11 +411,27 @@ def test_cli_refusals(tiny_config, capsys, flags, needle):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("flag", ["mesh", "batch"])
+@pytest.mark.parametrize("flag", ["mesh"])
 def test_run_sgd_refuses_unported_modes(tiny_config, flag):
     cfg, out = tiny_config
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        cli.run_sgd(cfg, str(out), device="cpu", **{flag: 4 if flag == "mesh" else True})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.12"):
+        cli.run_sgd(cfg, str(out), device="cpu", **{flag: 4})
+
+
+@pytest.mark.parametrize("zk,mode", [(True, "batched-zk"), (False, "batched")])
+def test_run_sgd_batch_proves_and_verifies(tiny_config, capsys, zk, mode):
+    """--batch as a run function: the instance is proved by spartan/batched.py
+    (here a batch of one) and verified; the meta says so."""
+    cfg, out = tiny_config
+    assert cli.run_sgd(cfg, str(out), zk=zk, batch=True, device="cpu")
+    text = capsys.readouterr().out
+    assert "Batched proving 1 instance(s)" in text
+    assert "Verification successful for tiny8x3 (batched)" in text
+    meta = _meta(out)
+    assert meta["mode"] == mode and meta["verified"] and meta["batch"] == 1
+    assert meta["device"] == "cpu" and meta["timings"]["prove"] > 0
+    proof = TS.load(str(out / "SGD" / "tiny8x3.proof.json"))
+    assert type(proof).__name__ == ("ZKNIZKProof" if zk else "NIZKProof")
 
 
 def test_cli_snark_mode_on_the_sgd_config(tiny_config, capsys):
