@@ -85,6 +85,17 @@ Phases (each prints a line; any failure exits non-zero):
               against the single default (a batch of one) and classic
               provers, with the device memory each adds at its peak,
               overall and by stage
+ 13. mesh     sharded proving (parallel/hybrid_sharded.py) with 2 and 4 shards
+              on the one card: kernel 2's batched entry with one shared
+              device challenge == its plain version down to the bare final
+              bind at the shard shapes (cubic [2, 2^13], [4, 2^12], quadratic
+              [2, 2^14], [4, 2^13]); the LP 117 x 225 (zk, one seed, and
+              plain) and optdigits (zk) proved byte-equal to hybrid.prove_zk /
+              hybrid.prove and verified (every kernel launched), a tampered
+              proof rejected, no host sync in a sharded prove
+              (OTTI_SYNC_CHECK=1); the LP at k = 1, 2, 4: five warm runs,
+              kernel and device launches, peak memory; cli.run_lp with --mesh
+              (auto: k = 1 on one card)
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -112,7 +123,7 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "kernel1", "kernel2", "main", "cpu_gpu", "scale", "lp_sdp", "snark",
-          "device_fs", "profile", "batch")
+          "device_fs", "profile", "batch", "mesh")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1218,9 +1229,10 @@ def _dfs_kernels(rec: dict, rows: int) -> None:
         "cubic and quadratic, 2^15 rows down to the final bind; == plain at 64 rows")
 
 
-def _dfs_instances(tmp: str) -> dict:
+def _dfs_instances(tmp: str, names=("optdigits", "iris", "lp117x225")) -> dict:
     """optdigits 3v8 (2^13: hybrid), iris 0v1 (2^10: fused) and the LP
-    117 x 225 written from a seed (2^14: hybrid), lowered."""
+    117 x 225 written from a seed (2^14: hybrid), lowered (those of
+    ``names``)."""
     from otti_tpu_torch import cli
     from otti_tpu_torch.codegen import lp_cert
     from otti_tpu_torch.io import mps
@@ -1230,8 +1242,11 @@ def _dfs_instances(tmp: str) -> dict:
         optdigits = json.load(f)["optdigits"]
     out = {}
     for name, params in (("optdigits", optdigits), ("iris", IRIS)):
-        shape, vars_, inputs, _, _ = cli.lower_sgd(name, params)
-        out[name] = (shape, vars_, inputs)
+        if name in names:
+            shape, vars_, inputs, _, _ = cli.lower_sgd(name, params)
+            out[name] = (shape, vars_, inputs)
+    if "lp117x225" not in names:
+        return out
     path = os.path.join(tmp, "gen117x225.mps")
     write_lp_mps(path, 117, 225, seed=1)
     prob = mps.parse_mps(path)
@@ -1666,6 +1681,34 @@ def _batch_cli(rec: dict, lps: list, tmp: str) -> None:
                 raise AssertionError(f"{name}: batch {meta['batch']}, expected 4")
 
 
+def _warm_runs(fn, runs: int) -> tuple:
+    """fn() warm (called once first): (seconds of each of ``runs`` calls,
+    kernel launches of one, its stage metrics)."""
+    from otti_tpu_torch import _build, metrics
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(runs):
+        before = dict(_build.LAUNCHES)
+        metrics.reset()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    stages = {k: round(v, 4) for k, v in metrics.snapshot().items() if k.endswith("_s")}
+    return walls, {k: v - before[k] for k, v in _build.LAUNCHES.items()}, stages
+
+
+def _spread(walls, per=1) -> dict:
+    w = sorted(x / per for x in walls)
+    return {"median": w[len(w) // 2], "min": w[0], "max": w[-1], "runs": len(w)}
+
+
+def _show(st) -> str:
+    return f"median {st['median']:.4f}s (min {st['min']:.4f}, max {st['max']:.4f})"
+
+
 def _batch_proofs(rec: dict, lps: list) -> None:
     """prove_many_zk byte-equal to the single-instance hybrid.prove_zk (a
     batch of one, without the batch axis) and to the host-transcript
@@ -1673,7 +1716,6 @@ def _batch_proofs(rec: dict, lps: list) -> None:
     nizk.prove; no host sync inside the batched chain; then launches, warm
     time and peak memory of a batch at B = 4, 8 against the single default
     (a batch of one) and classic provers."""
-    from otti_tpu_torch import _build, metrics
     from otti_tpu_torch.spartan import batched, hybrid, nizk, serial, zknizk
 
     seeds = [bytes([s]) * 32 for s in BATCH_SEEDS]
@@ -1709,29 +1751,6 @@ def _batch_proofs(rec: dict, lps: list) -> None:
         "== hybrid.prove == nizk.prove on the 4 LPs, byte for byte; every zk proof verifies, "
         "not for another instance; no host sync inside the batched chains (OTTI_SYNC_CHECK)")
 
-    def timed(fn):
-        """Warm: (seconds of each of BATCH_RUNS calls, launches of one, its
-        stage metrics)."""
-        fn()
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(BATCH_RUNS):
-            before = dict(_build.LAUNCHES)
-            metrics.reset()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        stages = {k: round(v, 4) for k, v in metrics.snapshot().items() if k.endswith("_s")}
-        return walls, {k: v - before[k] for k, v in _build.LAUNCHES.items()}, stages
-
-    def spread(walls, per=1):
-        w = sorted(x / per for x in walls)
-        return {"median": w[len(w) // 2], "min": w[0], "max": w[-1], "runs": len(w)}
-
-    def show(st):
-        return f"median {st['median']:.4f}s (min {st['min']:.4f}, max {st['max']:.4f})"
-
     res = {}
     jobs = [("zk-single-default", 1, lambda: hybrid.prove_zk(devs[0], vars_[0], ins[0],
                                                               seed=seeds[0])),
@@ -1745,13 +1764,13 @@ def _batch_proofs(rec: dict, lps: list) -> None:
         jobs.append((f"plain-batch{nb}", nb, lambda nb=nb: batched.prove_many(
             devs[:nb], vars_[:nb], ins[:nb])))
     for tag, nb, fn in jobs:
-        walls, per, stages = timed(fn)
+        walls, per, stages = _warm_runs(fn, BATCH_RUNS)
         mem = _peak_mib(fn)
-        res[tag] = {"s": spread(walls), "s_per_instance": spread(walls, nb), "launches": per,
+        res[tag] = {"s": _spread(walls), "s_per_instance": _spread(walls, nb), "launches": per,
                     "stages": stages, "memory": mem}
         log(f"[batch] {tag}{' (B = 1: a batch of one)' if 'default' in tag else ''}: warm "
             f"{'batch' if 'batch' in tag else 'prove'} "
-            f"{show(res[tag]['s'])} over {BATCH_RUNS} runs, {show(res[tag]['s_per_instance'])} "
+            f"{_show(res[tag]['s'])} over {BATCH_RUNS} runs, {_show(res[tag]['s_per_instance'])} "
             f"an instance; launches {per}; device memory added at the peak "
             f"{mem['peak_mib']:.1f} MiB over {mem['base_mib']:.1f} MiB held before, by stage "
             f"{json.dumps({k: round(v, 1) for k, v in mem['stages_mib'].items()})}; "
@@ -1811,32 +1830,41 @@ def _peak_mib(fn) -> dict:
             "stages_mib": {k: v / 2**20 for k, v in peaks.items()}}
 
 
+def _profiled(fn) -> dict:
+    """torch.profiler over one call of fn() (warm it first): device
+    launches, device time and its share of the wall.  The device events are
+    read from the profiler's raw results: building its per-operator table
+    (``key_averages``) takes seconds for every ten thousand events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    busy_ms = sum(n for n in ns if n > 0) / 1e6
+    if busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return {"device_launches": sum(1 for n in ns if n > 0), "device_ms": busy_ms,
+            "profiled_wall_ms": wall * 1e3, "busy_share": busy_ms / (wall * 1e3)}
+
+
 def _batch_profile(rec: dict, fns: dict) -> None:
     """torch.profiler over one warm call of each of ``fns`` (the single
     default zk prove, a zk batch of 8): device launches, device time and
     its share of the wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     out = {}
     for tag, fn in fns.items():
         fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                  and getattr(e, "device_time_total", 0) > 0]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        if busy_ms <= 0:
-            raise AssertionError(f"the profiler saw no device time in the {tag} prove")
-        out[tag] = {"device_launches": sum(e.count for e in events), "device_ms": busy_ms,
-                    "profiled_wall_ms": wall * 1e3, "busy_share": busy_ms / (wall * 1e3)}
+        out[tag] = _profiled(fn)
         log(f"[batch:profile] {tag}: {out[tag]['device_launches']} device launches, "
-            f"{busy_ms:.1f} ms of device time in {wall * 1e3:.1f} ms of profiled wall "
-            f"({100 * busy_ms / (wall * 1e3):.1f}% busy)")
+            f"{out[tag]['device_ms']:.1f} ms of device time in "
+            f"{out[tag]['profiled_wall_ms']:.1f} ms of profiled wall "
+            f"({100 * out[tag]['busy_share']:.1f}% busy)")
     rec["batch_profile"] = out
 
 
@@ -1854,6 +1882,249 @@ def phase_batch(rec: dict) -> None:
         _batch_proofs(rec, lps)
 
 
+MESH_SHARDS = (2, 4)  # shards on the one card in phase mesh
+MESH_RUNS = 5  # warm runs of each prover timed in phase mesh
+
+
+def _mesh_kernel2(rec: dict, n_cons: int, n_z: int) -> None:
+    """Kernel 2's batched entry as the mesh path launches it (the shards of
+    one card on the leading axis, one challenge in device memory shared by
+    them) == its plain version, every round down to the bare final bind, at
+    the path's shard-local shapes: [k, n_cons / k] cubic and [k, n_z / k]
+    quadratic for k in MESH_SHARDS.  One bind + evaluate round timed at
+    each shape."""
+    from otti_tpu_torch.field.ops import SCALAR, ints_to_limbs
+    from otti_tpu_torch.spartan import sumcheck_kernels as SK
+
+    rng = random.Random(13)
+    pool = torch.from_numpy(ints_to_limbs([rng.randrange(SCALAR.modulus) for _ in range(4096)])
+                            .reshape(4096, 22)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def rand(*shape):  # canonical values over the whole field, drawn on the card
+        return pool[torch.randint(0, 4096, shape, generator=gen, device="cuda")]
+
+    out = {"max_abs_err": 0, "shapes": []}
+    for k in MESH_SHARDS:
+        for n, degree in ((n_cons // k, 3), (n_z // k, 2)):
+            base = [rand(k, n) for _ in range(4 if degree == 3 else 2)]
+            rs = [rand() for _ in range(n.bit_length() - 1)]  # [22]: one for every shard
+            t_k = [t.clone() for t in base]
+            t_p = [t.clone() for t in base]
+            ev_k, sn_k = _run_sumcheck(SK.sumcheck_round_cuda, t_k, degree, rs)
+            ev_p, sn_p = _run_sumcheck(SK.sumcheck_round_plain, t_p, degree, rs)
+            torch.cuda.synchronize()
+            tag = f"mesh kernel2 deg {degree} [{k}, {n}]"
+            if ev_k[-1] is not None or ev_p[-1] is not None:
+                raise AssertionError(f"{tag}: the bare final bind evaluated something")
+            err = 0
+            for rnd, (a, b) in enumerate(zip(ev_k[:-1], ev_p[:-1])):
+                if tuple(a.shape) != (k, 3 if degree == 3 else 2, 22) or not torch.equal(a, b):
+                    raise AssertionError(f"{tag}: evals differ in round {rnd}")
+                err = max(err, int((a - b).abs().max()))
+            for rnd, (sa, sb) in enumerate(zip(sn_k, sn_p)):
+                if not all(torch.equal(a, b) for a, b in zip(sa, sb)):
+                    raise AssertionError(f"{tag}: tables differ after round {rnd}")
+            del t_k, t_p, sn_k, sn_p
+            tabs = [t.clone() for t in base]
+            ms = cuda_ms(lambda: SK.sumcheck_round_cuda(tabs, degree, rs[0], n // 2), 50,
+                         queue_ahead=True)
+            plain = cuda_ms(lambda: SK.sumcheck_round_plain(tabs, degree, rs[0], n // 2), 3)
+            b_ms, b_by = round_bound(degree, n, k)
+            row = {"shards": k, "n": n, "degree": degree, "rounds": len(ev_k) - 1,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                   "bound_by": b_by}
+            out["shapes"].append(row)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            log(f"[mesh:kernel2] degree {degree}, [{k}, {n}] with one shared device challenge: "
+                f"{row['rounds']} rounds exact down to the bare final bind; one bind+eval round "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+    rec["kernel2_mesh"] = out
+
+
+def _mesh_proofs(rec: dict, insts: dict) -> None:
+    """parallel/hybrid_sharded.py with k = 2 and 4 shards on cuda:0: the
+    launches of the path (counts set to 0 just before one sharded zk
+    prove of the LP 117 x 225, read just after); no host sync in one
+    sharded prove; optdigits (zk) and, over MESH_RUNS warm runs each, the
+    LP (zk with one seed, and plain) byte-equal to hybrid.prove_zk /
+    hybrid.prove (k = 1), verified, a tampered proof rejected; for the LP
+    at k = 1, 2 and 4 the warm times, the kernel launches of a warm prove,
+    and the device launches of another under torch.profiler, with the
+    device memory it adds at its peak."""
+    from otti_tpu_torch.parallel import hybrid_sharded as HS
+    from otti_tpu_torch.spartan import hybrid, nizk, serial, zknizk
+
+    seed = bytes(range(32))
+    card = torch.device("cuda", 0)
+    devs = {name: shape.to_device("cuda") for name, (shape, _, _) in insts.items()}
+
+    def prover(name, zk, k):
+        dev, (_, v, i) = devs[name], insts[name]
+        if k == 1:
+            return ((lambda: hybrid.prove_zk(dev, v, i, seed=seed)) if zk
+                    else (lambda: hybrid.prove(dev, v, i)))
+        if zk:
+            return lambda: HS.prove_zk(dev, v, i, k=k, seed=seed, devices=[card] * k)
+        return lambda: HS.prove(dev, v, i, k=k, devices=[card] * k)
+
+    def check(name, zk, proofs):
+        """Every proof byte-equal to the first (k = 1), all verified, a
+        tampered one rejected."""
+        dev, inputs = devs[name], insts[name][2]
+        verify = zknizk.verify if zk else nizk.verify
+        want = serial.dumps(proofs[0][1])
+        for k, proof in proofs:
+            if serial.dumps(proof) != want:
+                raise AssertionError(f"{name}: the {k}-shard {'zk' if zk else 'plain'} proof "
+                                     "differs from the single-device one")
+        for k, proof in {k: p for k, p in proofs}.items():
+            if not verify(dev, inputs, proof):
+                raise AssertionError(f"{name}: the {k}-shard proof does not verify")
+        bad = dataclasses.replace(proof, bullet=dataclasses.replace(
+            proof.bullet, z1=(proof.bullet.z1 + 1) % zknizk.L))
+        if verify(dev, inputs, bad):
+            raise AssertionError(f"{name}: a sharded proof with a tampered bullet.z1 verified")
+        log(f"[mesh] {name} {'zk (one seed)' if zk else 'plain'}: {len(proofs)} proofs over "
+            f"1, {' and '.join(map(str, MESH_SHARDS))} shards on {card}, byte for byte the "
+            "single-device prover's; verified; a tampered bullet.z1 rejected")
+
+    # the main path of this slice
+    t0 = time.time()
+    _zero_launches()
+    prover("lp117x225", True, 2)()
+    torch.cuda.synchronize()
+    rec["launches_mesh"] = _read_launches("mesh:lp117x225:zk:k=2")
+    os.environ["OTTI_SYNC_CHECK"] = "1"
+    try:
+        prover("lp117x225", True, 2)()
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["OTTI_SYNC_CHECK"]
+    log("[mesh] no host sync between the two transfers of a 2-shard zk prove "
+        f"(OTTI_SYNC_CHECK); the main path and the check {time.time() - t0:.1f}s")
+    t0 = time.time()
+    check("optdigits", True, [(k, prover("optdigits", True, k)()) for k in (1,) + MESH_SHARDS])
+    log(f"[mesh] optdigits {time.time() - t0:.1f}s")
+
+    res = {}
+    for zk in (True, False):
+        t0 = time.time()
+        proofs = []
+        for k in (1,) + MESH_SHARDS:
+            tag = f"{'zk' if zk else 'plain'}-k{k}"
+            fn = prover("lp117x225", zk, k)
+
+            def run(fn=fn, k=k):
+                proofs.append((k, fn()))
+
+            walls, per, stages = _warm_runs(run, MESH_RUNS)
+            mem = {}  # one more prove, profiled, and its memory read (host counters)
+            prof = _profiled(lambda fn=fn: mem.update(_peak_mib(fn)))
+            res[tag] = {"s": _spread(walls), "launches": per, "stages": stages, "memory": mem,
+                        "profile": prof}
+            rec.setdefault("launches_per_prove", {})[f"{tag}-mesh:lp117x225"] = per
+            log(f"[mesh] LP 117 x 225 {tag}{' (hybrid, one device)' if k == 1 else ''}: warm "
+                f"prove {_show(res[tag]['s'])} over {MESH_RUNS} runs; launches {per}; "
+                f"{prof['device_launches']} device launches, {prof['device_ms']:.1f} ms of "
+                f"device time in {prof['profiled_wall_ms']:.1f} ms "
+                f"({100 * prof['busy_share']:.1f}% busy); device memory added at the peak "
+                f"{mem['peak_mib']:.1f} MiB over {mem['base_mib']:.1f} MiB held before, by "
+                f"stage {json.dumps({k_: round(v, 1) for k_, v in mem['stages_mib'].items()})}; "
+                f"stages {json.dumps(stages)}")
+        check("lp117x225", zk, proofs)
+        log(f"[mesh] LP 117 x 225 {'zk' if zk else 'plain'} {time.time() - t0:.1f}s")
+    rec["mesh"] = res
+
+
+def _mesh_cards(rec: dict, insts: dict) -> None:
+    """With two cards or more: the LP 117 x 225 (zk with one seed, and
+    plain) with its shards on distinct cards, byte-equal to hybrid's proof
+    on cuda:0, and the warm times over MESH_RUNS runs (2 shards on cuda:0
+    and cuda:1; 4 shards on four cards, or two a card on two); no host
+    sync in a zk prove over two cards."""
+    from otti_tpu_torch.parallel import hybrid_sharded as HS
+    from otti_tpu_torch.spartan import hybrid, serial
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("[mesh:cards] one card visible: shards on distinct cards not run")
+        return
+    seed = bytes(range(32))
+    shape, v, i = insts["lp117x225"]
+    dev = shape.to_device("cuda:0")
+    want = {True: serial.dumps(hybrid.prove_zk(dev, v, i, seed=seed)),
+            False: serial.dumps(hybrid.prove(dev, v, i))}
+    res = {}
+    for ids in ([0, 1], [0, 1, 2, 3] if cards >= 4 else [0, 1, 0, 1]):
+        devices = [torch.device("cuda", c) for c in ids]
+        k = len(ids)
+        for zk in (True, False):
+            fn = ((lambda: HS.prove_zk(dev, v, i, k=k, seed=seed, devices=devices)) if zk
+                  else (lambda: HS.prove(dev, v, i, k=k, devices=devices)))
+            got = []
+            walls, per, stages = _warm_runs(lambda: got.append(serial.dumps(fn())), MESH_RUNS)
+            torch.cuda.synchronize()
+            if any(g != want[zk] for g in got):
+                raise AssertionError(f"{k} shards on cards {ids}: a {'zk' if zk else 'plain'} "
+                                     "proof differs from hybrid's on cuda:0")
+            tag = f"{'zk' if zk else 'plain'}-k{k}-cards{''.join(map(str, ids))}"
+            res[tag] = {"s": _spread(walls), "launches": per, "stages": stages}
+            log(f"[mesh:cards] LP 117 x 225 {tag}: {len(got)} proofs byte-equal to hybrid's on "
+                f"cuda:0; warm prove {_show(res[tag]['s'])} over {MESH_RUNS} runs; launches "
+                f"{per}; stages {json.dumps(stages)}")
+    rec["mesh_cards"] = res
+    os.environ["OTTI_SYNC_CHECK"] = "1"
+    try:
+        HS.prove_zk(dev, v, i, k=2, seed=seed, devices=[torch.device("cuda", c) for c in (0, 1)])
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["OTTI_SYNC_CHECK"]
+    log("[mesh:cards] no host sync between the two transfers of a zk prove over cuda:0 and "
+        "cuda:1 (OTTI_SYNC_CHECK)")
+
+
+def _mesh_cli(rec: dict, tmp: str) -> None:
+    """cli.run_lp with --mesh auto: k = 1 on one card (the single-device
+    prover, meta mode zk), else the largest power of two of the cards (at
+    least 2 shards, each on a card of its own)."""
+    from otti_tpu_torch import cli
+
+    lp = os.path.join(tmp, "gen117x225.mps")
+    cards = torch.cuda.device_count()
+    k = 1 << (cards.bit_length() - 1)
+    mode = "zk" if k == 1 else f"zk-mesh{k}"
+    ok, _ = _captured("mesh:cli", cli.run_lp, [lp], os.path.join(tmp, "mesh"), zk=True,
+                      mesh="auto")
+    if not ok:
+        raise AssertionError("run_lp(mesh='auto') did not verify")
+    _check_meta("mesh:cli", os.path.join(tmp, "mesh", "LP", "gen117x225.mps.meta.json"), mode)
+    log(f"[mesh:cli] run_lp(mesh='auto') with {cards} card(s) visible: meta mode {mode!r}"
+        + (" (resolved to k = 1: the single-device prover)" if k == 1 else ""))
+
+
+def phase_mesh(rec: dict) -> None:
+    """Sharded proving (parallel/hybrid_sharded.py, the CLI's --mesh) with 2
+    and 4 shards on cuda:0: kernel 2 at the path's shard shapes, the
+    proofs against the single-device ones, the numbers of k = 1, 2, 4;
+    with two cards or more, shards on distinct cards; the CLI's --mesh."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        insts = _dfs_instances(tmp, ("optdigits", "lp117x225"))
+        log(f"[mesh] optdigits and the LP 117 x 225 lowered in {time.time() - t0:.1f}s")
+        shape = insts["lp117x225"][0]
+        t0 = time.time()
+        _mesh_kernel2(rec, shape.num_cons_padded, 2 * shape.num_vars_padded)
+        log(f"[mesh] kernel 2 checked and timed in {time.time() - t0:.1f}s")
+        _mesh_proofs(rec, insts)
+        t0 = time.time()
+        _mesh_cards(rec, insts)
+        log(f"[mesh] shards on distinct cards in {time.time() - t0:.1f}s")
+        t0 = time.time()
+        _mesh_cli(rec, tmp)
+        log(f"[mesh] the CLI in {time.time() - t0:.1f}s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1867,7 +2138,8 @@ def main(argv=None) -> int:
     fns = {"device": phase_device, "build": phase_build, "kernel1": phase_kernel1,
            "kernel2": phase_kernel2, "main": phase_main, "cpu_gpu": phase_cpu_gpu,
            "scale": phase_scale, "lp_sdp": phase_lp_sdp, "snark": phase_snark,
-           "device_fs": phase_device_fs, "profile": phase_profile, "batch": phase_batch}
+           "device_fs": phase_device_fs, "profile": phase_profile, "batch": phase_batch,
+           "mesh": phase_mesh}
     for name in phases:
         t0 = time.time()
         fns[name](rec)
@@ -1905,6 +2177,7 @@ def main(argv=None) -> int:
                             "launches_device_fs":
                                 rec.get("launches_device_fs", {}).get(cname),
                             "launches_batch": rec.get("launches_batch", {}).get(cname),
+                            "launches_mesh": rec.get("launches_mesh", {}).get(cname),
                             **{k: v for k, v in rec[key].items()
                                if k in ("base", "quad", "floor_ms", "sizes")},
                             **({"device_challenge": rec["kernel2_device_challenge"]}
@@ -1912,6 +2185,8 @@ def main(argv=None) -> int:
                                else {}),
                             **({"batched": rec["kernel2_batched"]}
                                if key == "kernel2" and "kernel2_batched" in rec else {}),
+                            **({"mesh": rec["kernel2_mesh"]}
+                               if key == "kernel2" and "kernel2_mesh" in rec else {}),
                             "launches_per_prove": {
                                 tag: per.get(cname)
                                 for tag, per in rec.get("launches_per_prove", {}).items()}})

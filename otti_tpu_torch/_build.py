@@ -51,19 +51,19 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "field_mul": {
         "otti_field_mul_init": [_P],
-        "otti_field_mul": [_P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, _P],
+        "otti_field_mul": [_P, _P, _P, _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     },
     "sumcheck_round": {
         "otti_sumcheck_init": [_P],
         "otti_sumcheck_round": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _LL, _P, _P,
-                                ctypes.c_int, _LL, _LL, _P, _P, _P],
+                                ctypes.c_int, _LL, _LL, _P, _P, ctypes.c_int, _P],
     },
     "keccak": {
-        "otti_keccak_pad_f1600": [_P, _LL, ctypes.c_int, ctypes.c_int, _P],
+        "otti_keccak_pad_f1600": [_P, _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     },
     "ristretto_encode": {
         "otti_ristretto_init": [_P],
-        "otti_ristretto_encode": [_P, _P, _P, _P, _P, _LL, _P],
+        "otti_ristretto_encode": [_P, _P, _P, _P, _P, _LL, ctypes.c_int, _P],
     },
 }
 
@@ -107,8 +107,10 @@ def ristretto_consts() -> np.ndarray:
     return np.concatenate([field_consts(), np.array(words, dtype=np.uint32).view(np.int32)])
 
 
-# source file (without .cu) -> what its init function copies to the device
-# (keccak.cu has no init: its constants are compiled in, csrc/keccak.cuh)
+# source file (without .cu) -> what its init function keeps for the devices:
+# each library uploads it to a device at its first launch there
+# (csrc/device.cuh; keccak.cu has no init: its constants are compiled in,
+# csrc/keccak.cuh)
 _INIT_DATA = {"field_mul": field_consts, "sumcheck_round": field_consts,
               "ristretto_encode": ristretto_consts}
 
@@ -171,7 +173,7 @@ def library() -> types.SimpleNamespace:
                 fn.restype = ctypes.c_int
                 setattr(fns, fname, fn)
                 if fname.endswith("_init"):  # each library owns its constants
-                    check(fn(consts.ctypes.data), f"{fname} (constant upload)")
+                    check(fn(consts.ctypes.data), fname)
             with open(paths[name] + ".log") as f:
                 PTXAS_LOGS[name] = f.read()
             LIB_PATHS[name] = paths[name]
@@ -197,6 +199,8 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(t) -> int:
+    """The current stream of ``t``'s device.  A launch passes it with the
+    device's index, which the library makes current for the launch."""
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream

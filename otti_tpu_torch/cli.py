@@ -5,7 +5,8 @@
     python -m otti_tpu_torch.cli --sgd [--small|--full|--config F]
     python -m otti_tpu_torch.cli --verify-zkif CIRCUIT [INPUTS] WITNESS
         common: [--transparent | --snark] [--wire otti|spartan] [--emit-zkif]
-                [--batch] [--resume] [--no-prove] [--device cuda|cpu] [--out DIR]
+                [--batch] [--mesh K|auto] [--resume] [--no-prove] [--device cuda|cpu]
+                [--out DIR]
 
 Per instance: parse or fetch -> solver oracle -> lower the certificate to
 R1CS on the host -> move it to the device -> prove -> verify, with the JAX
@@ -37,9 +38,19 @@ one stacked device chain (spartan/batched.py: ``prove_many_zk``, or
 own; meta ``mode`` is ``batched-zk`` or ``batched`` and ``timings.prove``
 the batch's time over its size.  As in the JAX CLI, ``--wire``,
 ``--emit-zkif`` and ``OTTI_CLASSIC`` do not reach the batched provers, and
-``--batch --snark`` is refused.  Not ported yet, and refused with an error
-naming the ROADMAP item rather than replaced by something else:
-``--mesh``.
+``--batch --snark`` is refused.
+
+``--mesh K`` (or ``auto``: every visible card) proves each instance over k
+shards, one a card, by parallel/hybrid_sharded.py (``prove_zk``, or
+``prove`` with ``--transparent``), with the single-device prover's bytes;
+k is resolved as the JAX CLI resolves it (``_mesh_size``: at most the
+visible cards, a power of two, small enough for the instance) and meta
+``mode`` gains ``-mesh{k}``.  As in the JAX CLI, ``--wire spartan``,
+``--snark`` and ``--batch`` take their own provers whatever the mesh, and
+``OTTI_MESH_MONOLITHIC`` (the JAX package's single-program form of the
+same proofs) selects the same provers.  Not ported yet, and refused with an
+error naming the ROADMAP item rather than replaced by something else:
+``--coordinator``, ``--num-hosts`` and ``--host-id`` (multi-host runs).
 """
 
 from __future__ import annotations
@@ -53,7 +64,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 REFUSED = {
-    "mesh": "--mesh (multi-GPU proving) is not ported yet (ROADMAP.md item 1.12)",
+    "coordinator": "--coordinator, --num-hosts and --host-id (multi-host proving) are not "
+                   "ported yet (ROADMAP.md item 1.17)",
 }
 
 DEFAULT_DATASETS = os.environ.get(
@@ -157,10 +169,55 @@ def _choose_fused(shape) -> bool:
     return max(shape.num_vars_padded, shape.num_cons_padded) <= max_vars
 
 
-def _provers(shape, zk: bool, wire: str) -> tuple:
+def _visible_devices(device) -> list:
+    """The devices a mesh on ``device``'s kind may use: every card
+    (cuda:0, cuda:1, ...) for CUDA, the one CPU otherwise."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device(device)]
+
+
+# copied from otti_tpu/cli.py::_mesh_size (the visible devices counted by _visible_devices)
+def _mesh_size(mesh, shape, device="cuda") -> int:
+    """Resolve --mesh into a device count usable for this instance.
+
+    Returns 1 (single-chip) unless >1 devices are requested AND visible
+    AND the padded instance is large enough for the cyclic layout
+    (num_z/k >= 2, num_cons >= k)."""
+    if not mesh:
+        return 1
+    avail = len(_visible_devices(device))
+    k = avail if mesh == "auto" else int(mesh)
+    k = min(k, avail)
+    if k > 1 and k & (k - 1):
+        # the cyclic shard layout assumes power-of-two k (bit-indexed
+        # axis math, exact num_cons//k splits) — round a non-power-of-two
+        # request down rather than hand it garbage shard arithmetic
+        k2 = 1 << (k.bit_length() - 1)
+        _stage(f"  --mesh: {k} is not a power of two; using k={k2}")
+        k = k2
+    req = k
+    while k > 1 and (
+        shape.num_cons_padded < k or (2 * shape.num_vars_padded) // k < 2
+    ):
+        k //= 2
+    k = max(k, 1)
+    if k != req:
+        # VERDICT r03 weak #8: surface the silent degrade
+        _stage(
+            f"  --mesh: instance too small for {req} devices "
+            f"({shape.num_cons_padded} padded cons); using k={k}"
+        )
+    return k
+
+
+def _provers(shape, zk: bool, wire: str, mesh_k: int = 1, device="cuda") -> tuple:
     """(prove_fn, verify_fn, classic) for one lowered instance, as the JAX
-    CLI's dispatch (otti_tpu/cli.py, the branches after _choose_fused;
-    --mesh aside) picks them."""
+    CLI's dispatch (otti_tpu/cli.py, the branches after _choose_fused)
+    picks them; ``mesh_k`` > 1 shards the prover over the first mesh_k
+    visible devices."""
     from .spartan import fused, hybrid, nizk, zkfused, zknizk
 
     use_fused = _choose_fused(shape)
@@ -170,6 +227,18 @@ def _provers(shape, zk: bool, wire: str) -> tuple:
         # device-transcript provers bake the native labels; spartan/wire.py)
         return (lambda d, v, i: zknizk.prove(d, v, i, wire=wire),
                 lambda d, i, p: zknizk.verify(d, i, p, wire=wire), classic)
+    if mesh_k > 1:
+        # the sharded provers, whatever OTTI_MESH_MONOLITHIC says: the JAX
+        # package's monolithic form gives the same bytes and exists only
+        # to trade compile time, which eager torch does not spend
+        from .parallel import hybrid_sharded
+
+        devices = _visible_devices(device)[:mesh_k]
+        if zk:
+            return (lambda d, v, i: hybrid_sharded.prove_zk(d, v, i, k=mesh_k, devices=devices),
+                    zknizk.verify, classic)
+        return (lambda d, v, i: hybrid_sharded.prove(d, v, i, k=mesh_k, devices=devices),
+                nizk.verify, classic)
     if zk:
         prove_fn = (zknizk.prove if classic else zkfused.prove if use_fused
                     else hybrid.prove_zk)
@@ -178,18 +247,18 @@ def _provers(shape, zk: bool, wire: str) -> tuple:
     return prove_fn, nizk.verify, classic
 
 
-def _refuse(mesh) -> None:
-    if mesh:
-        raise NotImplementedError(REFUSED["mesh"])
+def _refuse(coordinator) -> None:
+    if coordinator:
+        raise NotImplementedError(REFUSED["coordinator"])
 
 
 def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None,
                      zk=True, snark=False, emit_zkif=False, wire="otti", device="cuda",
-                     extra_meta=None) -> bool:
+                     extra_meta=None, mesh=None) -> bool:
     """Prove + verify of one lowered instance on ``device``: in zero
     knowledge, transparent with ``zk=False``, with the prover that
-    ``_provers`` picks, or in SNARK mode with ``snark=True``
-    (spartan/snark.py).  The wire profile touches only the zk prover.  With
+    ``_provers`` picks (over ``_mesh_size(mesh)`` devices), or in SNARK
+    mode with ``snark=True`` (spartan/snark.py).  The wire profile touches only the zk prover.  With
     ``emit_zkif`` the instance is also written as a zkinterface triple
     (<name>.zkif, .inp.zkif, .wit.zkif) that ``--verify-zkif`` reads back."""
     from . import metrics
@@ -217,9 +286,10 @@ def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None
         def verify_fn(d, i, p):
             return snark_mod.verify(d, comm, i, p)
     else:
-        prove_fn, verify_fn, classic = _provers(shape, zk, wire)
-        mode = (("zk" if zk else "plain") + (f"-wire-{wire}" if wire != "otti" else "")
-                + ("-classic" if classic else ""))
+        mesh_k = _mesh_size(mesh, shape, device)
+        prove_fn, verify_fn, classic = _provers(shape, zk, wire, mesh_k, device)
+        mode = (("zk" if zk else "plain") + (f"-mesh{mesh_k}" if mesh_k > 1 else "")
+                + (f"-wire-{wire}" if wire != "otti" else "") + ("-classic" if classic else ""))
         tag = " (zk)" if zk else ""
 
     _stage(f"Proving {name}{tag}: {shape.num_cons} constraints, "
@@ -364,7 +434,8 @@ def lower_sgd(dataset: str, params: dict, prob_check: bool = False, timer=None):
 
 
 def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delta=None,
-           emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda") -> bool:
+           emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda",
+           coordinator=None) -> bool:
     """Prove and verify the optimality certificate of every MPS file:
     parse -> LP oracle -> lower -> prove; artifacts go to ``<home_out>/LP``.
     One failing instance does not stop the others.  With ``batch`` every
@@ -376,7 +447,7 @@ def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delt
 
     from .codegen import lp_cert
 
-    _refuse(mesh)
+    _refuse(coordinator)
     ok_all = True
     out_dir = os.path.join(home_out, "LP")
     lowered = []  # with batch: proved together once all are lowered
@@ -407,7 +478,7 @@ def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delt
                 lowered.append((name, shape, vars_, inputs, timer))
             elif prove:
                 ok_all &= prove_and_verify(shape, vars_, inputs, name, timer, out_dir, zk,
-                                           snark, emit_zkif, wire, device)
+                                           snark, emit_zkif, wire, device, mesh=mesh)
             else:
                 _stage(f"  lowered {name}: {shape.num_cons} constraints [{timer.report()}]")
         except Exception as e:  # fail-soft per instance, as the JAX CLI
@@ -419,7 +490,8 @@ def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delt
 
 
 def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, epsilon=None,
-            emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda") -> bool:
+            emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda",
+            coordinator=None) -> bool:
     """Prove and verify the optimality certificate of every SDPA sparse
     (``.dat-s``) file: parse -> SDP oracle -> Cholesky witnesses -> lower ->
     prove; artifacts go to ``<home_out>/SDP``.  A file of another kind is
@@ -429,7 +501,7 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
 
     from .codegen import sdp_cert
 
-    _refuse(mesh)
+    _refuse(coordinator)
     ok_all = True
     out_dir = os.path.join(home_out, "SDP")
     lowered = []  # with batch: proved together once all are lowered
@@ -466,7 +538,7 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
                 lowered.append((name, shape, vars_, inputs, timer))
             elif prove:
                 ok_all &= prove_and_verify(shape, vars_, inputs, name, timer, out_dir, zk,
-                                           snark, emit_zkif, wire, device)
+                                           snark, emit_zkif, wire, device, mesh=mesh)
             else:
                 _stage(f"  lowered {name}: {shape.num_cons} constraints [{timer.report()}]")
         except Exception as e:
@@ -479,14 +551,14 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
 
 def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
             resume=False, batch=False, snark=False, emit_zkif=False, mesh=None, wire="otti",
-            device="cuda") -> bool:
+            device="cuda", coordinator=None) -> bool:
     """Prove and verify every instance of a PMLB SGD config, in zero
     knowledge unless ``zk=False`` or ``snark=True``; artifacts go to
     ``<home_out>/SGD``.  With ``resume`` an instance whose meta says it
     verified is skipped.  Returns True when every instance verified."""
     from .io import pmlb_local
 
-    _refuse(mesh)
+    _refuse(coordinator)
     cfg = pmlb_local.load_config(config_path)
     out_dir = os.path.join(home_out, "SGD")
     ok_all = True
@@ -516,7 +588,7 @@ def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
                 continue
             ok_all &= prove_and_verify(
                 shape, vars_, inputs, name, timer, out_dir, zk, snark, emit_zkif, wire, device,
-                extra_meta={
+                mesh=mesh, extra_meta={
                     "data_source": data_source,
                     "data_shape": list(xshape),
                     # the scale applies to cached real data only; the
@@ -577,7 +649,16 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", action="store_true",
                         help="prove the instances of each padded shape class together, as "
                              "one stacked device chain")
-    parser.add_argument("--mesh", type=str, default=None, help="not ported yet")
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="multi-device proving: the number of cards to shard each prove "
+                             "over, or 'auto' for every visible card; the proofs are the "
+                             "single-device prover's bytes")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="multi-host run: the coordinator's host:port (not ported yet)")
+    parser.add_argument("--num-hosts", type=int, default=None,
+                        help="multi-host run (not ported yet)")
+    parser.add_argument("--host-id", type=int, default=None,
+                        help="multi-host run (not ported yet)")
     args = parser.parse_args(argv)
     if args.zk and args.snark:
         parser.error("--zk and --snark are mutually exclusive")
@@ -585,13 +666,13 @@ def main(argv=None) -> int:
         parser.error("--zk and --transparent are mutually exclusive")
     if args.batch and args.snark:
         parser.error("--batch and --snark are mutually exclusive")
-    if args.mesh:
-        parser.error(REFUSED["mesh"])
+    if args.coordinator or args.num_hosts is not None or args.host_id is not None:
+        parser.error(REFUSED["coordinator"])
     # zero knowledge is the default, as in otti_tpu; --transparent and --snark opt out
     args.zk = not (args.transparent or args.snark)
     prove = not args.no_prove
     common = dict(zk=args.zk, resume=args.resume, snark=args.snark, emit_zkif=args.emit_zkif,
-                  batch=args.batch, wire=args.wire, device=args.device)
+                  batch=args.batch, mesh=args.mesh, wire=args.wire, device=args.device)
 
     def listdir(sub):
         d = os.path.join(args.datasets, sub)

@@ -52,7 +52,8 @@ struct FieldConsts {
   uint32_t fold;          // BASE: 38 = 2^256 mod p; SCALAR: unused (0)
 };
 
-// static: each translation unit owns its copy and sets it in its own init.
+// static: each translation unit owns its copy and sets it (on the current
+// device) in its own set-up; csrc/device.cuh runs that once on each device.
 OTTI_CONST FieldConsts FC[2];
 
 static int set_field_consts(const int32_t* host) {

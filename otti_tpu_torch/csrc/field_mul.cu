@@ -28,7 +28,10 @@
 //     pointer is not 16-byte aligned, is loaded and stored by all threads
 //     with plain coalesced 4-byte accesses, masked by row.
 //   * The tensor cores have no part: these are exact 255-bit integers.
+#include <string.h>
+
 #include "async_copy.cuh"
+#include "device.cuh"
 #include "field.cuh"
 
 #define FM_ROWS 128
@@ -112,35 +115,47 @@ field_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
   if (bulk && tid == 0) bulk_wait_all();
 }
 
-static int g_max_blocks[2] = {0, 0};  // resident blocks on the whole card, by field
+static int32_t g_consts[sizeof(FieldConsts) * 2 / 4];  // FieldConsts[2], for every device
+static int g_max_blocks[OTTI_MAX_DEVICES][2];  // resident blocks on the whole card, by field
+static PerDevice g_devices;
 
+// Keeps the constants on the host; each device gets them, and its resident
+// block counts, at its first launch (DeviceScope).
 extern "C" int otti_field_mul_init(const int32_t* consts) {
-  int err = set_field_consts(consts);
+  memcpy(g_consts, consts, sizeof(g_consts));
+  return 0;
+}
+
+static int setup_device(int dev) {
+  int err = set_field_consts(g_consts);
   if (err) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = (int)cudaGetDevice(&dev))) return err;
+  int sms = 0, per_sm = 0;
   if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return err;
   if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, field_mul_kernel<FIELD_SCALAR>, FM_ROWS, 0)))
     return err;
-  g_max_blocks[FIELD_SCALAR] = sms * (per_sm > 0 ? per_sm : 1);
+  g_max_blocks[dev][FIELD_SCALAR] = sms * (per_sm > 0 ? per_sm : 1);
   if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
            &per_sm, field_mul_kernel<FIELD_BASE>, FM_ROWS, 0)))
     return err;
-  g_max_blocks[FIELD_BASE] = sms * (per_sm > 0 ? per_sm : 1);
+  g_max_blocks[dev][FIELD_BASE] = sms * (per_sm > 0 ? per_sm : 1);
   return 0;
 }
 
 // a, out: [n, 22] int32 on the device; b: [n, 22], or one [22] element shared
 // by all rows when b_broadcast != 0.  field: FIELD_SCALAR or FIELD_BASE.
-// Returns the launch's cudaGetLastError().
+// device: the tensors' CUDA device, whose stream ``stream`` is.  Returns the
+// launch's cudaGetLastError().
 extern "C" int otti_field_mul(const int32_t* a, const int32_t* b, int32_t* out,
-                              long long n, int b_broadcast, int field,
+                              long long n, int b_broadcast, int field, int device,
                               void* stream) {
   if (n <= 0) return 0;
   if (field != FIELD_SCALAR && field != FIELD_BASE) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device, g_devices, setup_device);
+  if (scope.err) return scope.err;
   const long long ntiles = (n + FM_ROWS - 1) / FM_ROWS;
-  const long long cap = g_max_blocks[field] > 0 ? g_max_blocks[field] : 1;
+  const int resident = g_max_blocks[device][field];
+  const long long cap = resident > 0 ? resident : 1;
   const unsigned blocks = (unsigned)(ntiles < cap ? ntiles : cap);
   uintptr_t bits = (uintptr_t)a | (uintptr_t)out;
   if (!b_broadcast) bits |= (uintptr_t)b;

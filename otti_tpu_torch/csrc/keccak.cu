@@ -30,6 +30,7 @@
 //   * 128 threads a block, a state a warp.
 #include <cuda_runtime.h>
 
+#include "device.cuh"
 #include "keccak.cuh"
 
 #define K3_THREADS 128
@@ -49,13 +50,16 @@ keccak_kernel(uint64_t* __restrict__ st, int64_t n, int pos, int pos_begin) {
 
 // states: n uint8 states of 200 bytes on the device (8-byte aligned),
 // permuted in place; pos in [0, 166] applies the pad with pos_begin first,
-// pos = -1 permutes only.  Returns the launch's cudaGetLastError().
+// pos = -1 permutes only; device: their CUDA device, whose stream ``stream``
+// is.  Returns the launch's cudaGetLastError().
 extern "C" int otti_keccak_pad_f1600(uint8_t* states, long long n, int pos, int pos_begin,
-                                     void* stream) {
+                                     int device, void* stream) {
   if (n <= 0) return n == 0 ? 0 : (int)cudaErrorInvalidValue;
   if (pos < -1 || pos > STROBE_RATE || ((uintptr_t)states & 7)) return (int)cudaErrorInvalidValue;
   const long long blocks = (n + K3_THREADS / 32 - 1) / (K3_THREADS / 32);
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err) return scope.err;
   keccak_kernel<<<(unsigned)blocks, K3_THREADS, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<uint64_t*>(states), n, pos, pos_begin);
   return (int)cudaGetLastError();

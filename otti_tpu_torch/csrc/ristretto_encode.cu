@@ -38,6 +38,9 @@
 //     the same dependent chain as the carry it replaces.
 //   * It reads the port's semi-reduced limbs as the multiply kernel and the
 //     torch ops leave them (any row in [0, 2^256) with |limb| < 2^18).
+#include <string.h>
+
+#include "device.cuh"
 #include "ristretto.cuh"
 
 #define RE_THREADS 32
@@ -59,21 +62,34 @@ ristretto_encode_kernel(const int32_t* __restrict__ x, const int32_t* __restrict
              ((uint32_t)enc[4 * w + 2] << 16) | ((uint32_t)enc[4 * w + 3] << 24);
 }
 
+// FieldConsts[2] then RistrettoConsts, for every device
+static int32_t g_consts[(sizeof(FieldConsts) * 2 + sizeof(RistrettoConsts)) / 4];
+static PerDevice g_devices;
+
 // consts: the FieldConsts[2] block (as every kernel library takes it), then
-// the 16 words of RistrettoConsts.
+// the 16 words of RistrettoConsts.  Kept on the host; each device gets them
+// at its first launch (DeviceScope).
 extern "C" int otti_ristretto_init(const int32_t* consts) {
-  const int err = set_field_consts(consts);
+  memcpy(g_consts, consts, sizeof(g_consts));
+  return 0;
+}
+
+static int setup_device(int) {
+  const int err = set_field_consts(g_consts);
   if (err) return err;
-  return set_ristretto_consts(reinterpret_cast<const uint32_t*>(consts) +
+  return set_ristretto_consts(reinterpret_cast<const uint32_t*>(g_consts) +
                               sizeof(FieldConsts) * 2 / 4);
 }
 
 // x, y, z, t: [n, 22] int32 limb rows on the device (8-byte aligned rows);
-// out: n x 32 bytes (4-byte aligned).  Returns the launch's cudaGetLastError().
+// out: n x 32 bytes (4-byte aligned); device: their CUDA device, whose stream
+// ``stream`` is.  Returns the launch's cudaGetLastError().
 extern "C" int otti_ristretto_encode(const int32_t* x, const int32_t* y, const int32_t* z,
-                                     const int32_t* t, uint8_t* out, long long n,
+                                     const int32_t* t, uint8_t* out, long long n, int device,
                                      void* stream) {
   if (n <= 0) return n == 0 ? 0 : (int)cudaErrorInvalidValue;
+  DeviceScope scope(device, g_devices, setup_device);
+  if (scope.err) return scope.err;
   const long long blocks = (n + RE_THREADS - 1) / RE_THREADS;
   ristretto_encode_kernel<<<(unsigned)blocks, RE_THREADS, 0, (cudaStream_t)stream>>>(
       x, y, z, t, out, n);

@@ -64,7 +64,10 @@
 // finishes its own sums, exactly as a launch on that instance alone would.
 //
 // The tensor cores have no part: these are exact 255-bit integers.
+#include <string.h>
+
 #include "async_copy.cuh"
+#include "device.cuh"
 #include "field.cuh"
 
 #define SC_P 16          // pairs per block
@@ -270,9 +273,17 @@ sumcheck_round_kernel(const Round rd, u64* __restrict__ scratch_all,
 #undef TAB
 }
 
+static int32_t g_consts[sizeof(FieldConsts) * 2 / 4];  // FieldConsts[2], for every device
+static PerDevice g_devices;
+
+// Keeps the constants on the host; each device gets them at its first
+// launch (DeviceScope).
 extern "C" int otti_sumcheck_init(const int32_t* consts) {
-  return set_field_consts(consts);
+  memcpy(g_consts, consts, sizeof(g_consts));
+  return 0;
 }
+
+static int setup_device(int) { return set_field_consts(g_consts); }
 
 // tables: ntab (2 or 4) pointers to batch instances' [n, 22] int32 device
 // tables each ([batch, n, 22], contiguous), updated in place.  r: the 8 words
@@ -286,12 +297,13 @@ extern "C" int otti_sumcheck_init(const int32_t* consts) {
 // first launch and left zero by every launch (24 accumulators and the
 // ticket); launches that share it must be ordered on one stream.  evals:
 // k * 22 int32 an instance (k = 3 cubic, 2 quad), unused when ah == 1.
-// Returns the launch's cudaGetLastError().
+// device: the tables' CUDA device, whose stream ``stream`` is.  Returns the
+// launch's cudaGetLastError().
 extern "C" int otti_sumcheck_round(int32_t* t0, int32_t* t1, int32_t* t2,
                                    int32_t* t3, int ntab, int batch, long long n,
                                    const uint32_t* r_host, const int32_t* r_dev, int r_stride,
                                    long long ah, long long half, u64* scratch,
-                                   int32_t* evals, void* stream) {
+                                   int32_t* evals, int device, void* stream) {
   if ((ntab != 2 && ntab != 4) || ah < 0 || batch < 1 || batch > 65535 || n < 1)
     return (int)cudaErrorInvalidValue;
   Round rd;
@@ -313,6 +325,8 @@ extern "C" int otti_sumcheck_round(int32_t* t0, int32_t* t1, int32_t* t2,
   for (int q = 0; q < ntab; ++q) bits |= (uintptr_t)rd.tab[q];
   rd.bulk = (bits & 15) == 0 && rd.npairs > 0 && rd.npairs % SC_P == 0;
   const long long blocks = (rd.nlo + SC_P - 1) / SC_P;
+  DeviceScope scope(device, g_devices, setup_device);
+  if (scope.err) return scope.err;
   sumcheck_round_kernel<<<dim3((unsigned)blocks, (unsigned)batch), SC_THREADS, 0,
                           (cudaStream_t)stream>>>(rd, scratch, evals);
   return (int)cudaGetLastError();

@@ -135,7 +135,7 @@ def encode_cuda(p: dict) -> torch.Tensor:
     if n:
         lib = _build.library()
         err = lib.otti_ristretto_encode(*(c.data_ptr() for c in coords), out.data_ptr(), n,
-                                        _build.stream_ptr(X))
+                                        X.device.index, _build.stream_ptr(X))
         _build.check(err, "ristretto_encode")
         _build.LAUNCHES["ristretto_encode"] += 1
     return out.reshape(shape + (32,))

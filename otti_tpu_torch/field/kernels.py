@@ -58,7 +58,7 @@ def mul_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib = _build.library()
     err = lib.otti_field_mul(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), n, int(bcast),
-        FIELD_IDS[spec.kind], _build.stream_ptr(a),
+        FIELD_IDS[spec.kind], a.device.index, _build.stream_ptr(a),
     )
     _build.check(err, "field_mul")
     _build.LAUNCHES["field_mul"] += 1

@@ -165,7 +165,7 @@ def sumcheck_round_cuda(tables, degree: int, r=None, prev_half: int | None = Non
         *ptrs, len(tables), instances, n, r_words.ctypes.data,
         0 if r_dev is None else r_dev.data_ptr(), r_stride, ah, half,
         _scratch_for(dev, stream, instances).data_ptr(),
-        0 if evals is None else evals.data_ptr(), stream,
+        0 if evals is None else evals.data_ptr(), dev.index, stream,
     )
     if err != 0:  # the scratch may not have been left zero: the next call takes a new one
         _scratch.pop((dev.index, stream, instances), None)

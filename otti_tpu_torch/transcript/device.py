@@ -163,7 +163,7 @@ def keccak_f1600_cuda(st: torch.Tensor, pos: int = -1, pos_begin: int = 0) -> to
         return st
     lib = _build.library()
     err = lib.otti_keccak_pad_f1600(st.data_ptr(), st.shape[0], pos, pos_begin,
-                                    _build.stream_ptr(st))
+                                    st.device.index, _build.stream_ptr(st))
     _build.check(err, "keccak_f1600")
     _build.LAUNCHES["keccak_f1600"] += 1
     return st

@@ -588,6 +588,39 @@ def test_function_is_a_marked_copy(copy_path, orig_path, name):
     assert copy == original
 
 
+@pytest.mark.parametrize("avail", [1, 2, 3, 8])
+def test_mesh_size_is_a_marked_copy(avail, monkeypatch, capsys):
+    """``cli._mesh_size`` is its original's text but for how it counts the
+    visible devices (the port's ``_visible_devices``, not ``jax.devices()``),
+    and resolves every request as the original does, with its stage
+    messages, whatever the number of devices visible."""
+    import types
+
+    import jax
+
+    from otti_tpu import cli as j_cli
+    from otti_tpu_torch import cli as t_cli
+
+    copy, marker = _function_source("otti_tpu_torch/cli.py", "_mesh_size")
+    original, _ = _function_source("otti_tpu/cli.py", "_mesh_size")
+    assert marker == ("# copied from otti_tpu/cli.py::_mesh_size "
+                      "(the visible devices counted by _visible_devices)")
+    assert copy == (original
+                    .replace("(mesh, shape) -> int:", '(mesh, shape, device="cuda") -> int:')
+                    .replace("    import jax\n\n    avail = len(jax.devices())",
+                             "    avail = len(_visible_devices(device))"))
+    monkeypatch.setattr(jax, "devices", lambda *a: [None] * avail)
+    monkeypatch.setattr(t_cli, "_visible_devices", lambda device: [None] * avail)
+    capsys.readouterr()
+    for cons, nvars in ((16, 8), (4, 2), (2, 64), (1024, 1024)):
+        shape = types.SimpleNamespace(num_cons_padded=cons, num_vars_padded=nvars)
+        for mesh in (None, "auto", "1", "2", "3", "4", "6", "8", "16"):
+            got = t_cli._mesh_size(mesh, shape, "cpu")
+            said = capsys.readouterr().out
+            assert got == j_cli._mesh_size(mesh, shape), (mesh, shape)
+            assert said == capsys.readouterr().out, (mesh, shape)
+
+
 @pytest.mark.parametrize("strobe", ["default", "python"])
 def test_export_host_strobe_equal(strobe, monkeypatch):
     """The state and offsets handed to a device transcript, from the native

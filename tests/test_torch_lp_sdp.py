@@ -231,7 +231,7 @@ def test_cli_failing_instance_gives_exit_code_1(tmp_path, capsys):
     (["--sdp", "--full"], "this suite is not in the repository"),
     (["--lp", "--config", "x.json"], "--config is for --sgd"),
     (["--sgd", "--custom", "x.mps"], "--sgd has no --custom mode"),
-    (["--lp", "--custom", "x.mps", "--mesh", "4"], "ROADMAP.md item 1.12"),
+    (["--lp", "--custom", "x.mps", "--coordinator", "host:1234"], "ROADMAP.md item 1.17"),
     (["--sdp", "--custom", "x.dat-s", "--batch", "--snark"], "mutually exclusive"),
 ])
 def test_cli_lp_sdp_refusals(tmp_path, capsys, flags, needle):
@@ -245,10 +245,10 @@ def test_cli_lp_sdp_refusals(tmp_path, capsys, flags, needle):
 
 
 @pytest.mark.parametrize("fn", ["run_lp", "run_sdp"])
-@pytest.mark.parametrize("flag", ["mesh"])
+@pytest.mark.parametrize("flag", ["coordinator"])
 def test_run_functions_refuse_unported_modes(tmp_path, fn, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.12"):
-        getattr(cli, fn)([], str(tmp_path), device="cpu", **{flag: 4})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.17"):
+        getattr(cli, fn)([], str(tmp_path), device="cpu", **{flag: "host:1234"})
 
 
 def test_run_lp_batch_proves_a_shape_class(lp_file, tmp_path, capsys):

@@ -398,7 +398,7 @@ def test_cli_resume_skips_a_verified_instance(tiny_config, capsys):
     (["--lp"], "--config is for --sgd"),
     (["--sdp"], "--config is for --sgd"),
     (["--snark", "--zk"], "--zk and --snark are mutually exclusive"),
-    (["--mesh", "4"], "ROADMAP.md item 1.12"),
+    (["--coordinator", "host:1234"], "ROADMAP.md item 1.17"),
     (["--batch", "--snark"], "--batch and --snark are mutually exclusive"),
     (["--wire", "other"], "invalid choice"),
 ])
@@ -411,11 +411,11 @@ def test_cli_refusals(tiny_config, capsys, flags, needle):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("flag", ["mesh"])
+@pytest.mark.parametrize("flag", ["coordinator"])
 def test_run_sgd_refuses_unported_modes(tiny_config, flag):
     cfg, out = tiny_config
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.12"):
-        cli.run_sgd(cfg, str(out), device="cpu", **{flag: 4})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.17"):
+        cli.run_sgd(cfg, str(out), device="cpu", **{flag: "host:1234"})
 
 
 @pytest.mark.parametrize("zk,mode", [(True, "batched-zk"), (False, "batched")])
