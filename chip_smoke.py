@@ -38,10 +38,27 @@ Phases (each prints a line; any failure exits non-zero):
   9. snark    SNARK mode (SPARK commitments of the matrices, timed apart as
               snark_setup) through the CLI's functions on optdigits and on
               the 2^15 R1CS of phase 7, cold then warm, with peak device
-              memory; both kernels launched; a 256-constraint R1CS proved on
-              the card and on the CPU, the two proofs byte-equal; two
-              tampered proofs rejected
- 10. device_fs the device transcript: measurement probes on ristretto.cuh and
+              memory; K1, K2, K3 and K5 launched (SPARK's sumchecks run on
+              the device transcript); a 256-constraint R1CS proved on the
+              card and on the CPU, the two proofs byte-equal; two tampered
+              proofs rejected
+ 10. custom   SPARK's custom sumchecks at the full widths of both SNARK
+              instances (mu_n, mu_x and mu_y printed): K5 == its plain
+              version through whole sumchecks of both combinations (semi-form
+              inputs, the first round, bound rounds with the challenge as an
+              int and in device memory, down to one pair and the bare final
+              bind), a bind + evaluate round of each shape timed against the
+              plain version and the bound; prove_custom == prove_custom_device
+              on the same tables, both timed; no host sync inside
+              prove_custom_device (OTTI_SYNC_CHECK=1); then five warm SNARK
+              proves of each instance with SPARK's sumchecks in the device
+              form and in the host form (median, spread, spark_entry_s,
+              spark_tables_s, K1-K5 launches, and for optdigits the device
+              launches under torch.profiler).  Phase snark_warm (not in the
+              default list) runs those proves alone: with ``--tree DIR`` it
+              times the package of another checkout, such as the parent
+              commit, in the same call
+ 11. device_fs the device transcript: measurement probes on ristretto.cuh and
               keccak.cuh (SASS of one square, old and new; a dependent
               square, multiply and permutation in one thread; the empty
               kernel); K3 (Keccak-f[1600], STROBE pad in the same launch)
@@ -59,17 +76,17 @@ Phases (each prints a line; any failure exits non-zero):
               rejected; no host sync between the two transfers
               (OTTI_SYNC_CHECK=1); the launches of a warm prove; run_sgd
               under OTTI_CLASSIC=1 (phase main drives the default), run_lp
-              by default, all four kernels launched; last, a warm optdigits
+              by default, K1-K4 launched; last, a warm optdigits
               zk prove under torch.profiler with the pad as a torch XOR and
               fused into K3: device launches, K3 and K4 device time, the
               proofs byte-equal
- 11. profile  a warm optdigits prove, transparent, zero-knowledge (host
+ 12. profile  a warm optdigits prove, transparent, zero-knowledge (host
               transcript, then hybrid.prove_zk), then in SNARK mode: the
               multiply kernel's launch sizes by field, kernel == plain at
               each, its time at the most frequent ones, every kernel's
               launches per prove; then torch.profiler over another: the
               device's busy share of the wall time and the top kernels
- 12. batch    batched proving (spartan/batched.py): eight LPs 117 x 225
+ 13. batch    batched proving (spartan/batched.py): eight LPs 117 x 225
               written from seeds 1-8 (one padded class, printed); kernel 2
               over a batch with one device challenge an instance == its
               plain version down to the bare final bind, at B = 8 x 2^13
@@ -85,7 +102,7 @@ Phases (each prints a line; any failure exits non-zero):
               against the single default (a batch of one) and classic
               provers, with the device memory each adds at its peak,
               overall and by stage
- 13. mesh     sharded proving (parallel/hybrid_sharded.py) with 2 and 4 shards
+ 14. mesh     sharded proving (parallel/hybrid_sharded.py) with 2 and 4 shards
               on the one card: kernel 2's batched entry with one shared
               device challenge == its plain version down to the bare final
               bind at the shard shapes (cubic [2, 2^13], [4, 2^12], quadratic
@@ -123,8 +140,18 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "kernel1", "kernel2", "main", "cpu_gpu", "scale", "lp_sdp", "snark",
-          "device_fs", "profile", "batch", "mesh")
+          "custom", "device_fs", "profile", "batch", "mesh")
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+HOST_FS_KERNELS = ("field_mul", "sumcheck_round")  # the paths with the host transcript
+# the device-transcript NIZK paths (the CLI's defaults, batch, mesh)
+DFS_KERNELS = ("field_mul", "sumcheck_round", "keccak_f1600", "ristretto_encode")
+# SNARK mode: SPARK's custom sumchecks run K5 and the device transcript (K3);
+# its commitments are encoded on the host
+SNARK_KERNELS = ("field_mul", "sumcheck_round", "keccak_f1600", "custom_round")
+# the hand-written kernels' symbol names, as a profiler shows them
+OWN_KERNELS = ("field_mul_kernel", "sumcheck_round_kernel", "keccak_kernel",
+               "ristretto_encode_kernel", "custom_round_kernel")
 
 
 def log(msg: str) -> None:
@@ -217,7 +244,8 @@ PTXAS_EARLIER = {"field_mul": "83 and 66 registers, no spills, 45,072 B shared",
                  "sumcheck_round": "80 registers, 120 B stack, no spills, 28,364 B shared",
                  "keccak": "26 registers, no spills, 440 B shared (one warp a state in shared "
                            "memory)",
-                 "ristretto_encode": "126 registers, no spills"}
+                 "ristretto_encode": "126 registers, no spills",
+                 "custom_round": "none: new, the first build of K5"}
 
 
 def phase_build(rec: dict) -> None:
@@ -468,7 +496,7 @@ def _config(path: str, names=("optdigits", "iris")) -> None:
 
 
 def _drive_run_sgd(rec: dict, tag: str, cfg: str, out_dir: str, names, mode: str,
-                   kernels=None, **kw) -> dict:
+                   kernels=DFS_KERNELS, **kw) -> dict:
     """cli.run_sgd on ``cfg``, cold then warm, with the launch counts set to 0
     just before and read just after (``kernels``: those that must have run);
     every instance must verify and its meta must name ``mode``.  Returns the
@@ -656,18 +684,14 @@ def _zero_launches() -> None:
         _build.LAUNCHES[k] = 0
 
 
-HOST_FS_KERNELS = ("field_mul", "sumcheck_round")  # the paths with the host transcript
-
-
-def _read_launches(tag: str, kernels=None) -> dict:
-    """The counts since _zero_launches; every kernel of ``kernels`` (all
-    four by default: the device-transcript paths run them all) must have
-    been launched."""
+def _read_launches(tag: str, kernels=DFS_KERNELS) -> dict:
+    """The counts since _zero_launches; every kernel of ``kernels`` must
+    have been launched."""
     from otti_tpu_torch import _build
 
     launches = dict(_build.LAUNCHES)
     log(f"[{tag}] kernel launches during this path: {launches}")
-    for k in kernels or launches:
+    for k in kernels:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the {tag} path")
     return launches
@@ -812,7 +836,7 @@ def phase_snark(rec: dict) -> None:
                     f"prove {meta['timings']['prove']:.3f}s verify {meta['timings']['verify']:.3f}s "
                     f"proof {meta['proof_bytes']} B, peak device memory {peak / 2**20:.1f} MiB "
                     "(setup, prove and verify)")
-        rec["launches_snark"] = _read_launches("snark", HOST_FS_KERNELS)
+        rec["launches_snark"] = _read_launches("snark", SNARK_KERNELS)
         proof = serial.load(os.path.join(tmp, "SGD", "optdigits.proof.json"))
         if type(proof).__name__ != "SNARKProof":
             raise AssertionError(f"saved proof is a {type(proof).__name__}")
@@ -842,6 +866,291 @@ def phase_snark(rec: dict) -> None:
         raise AssertionError("GPU and CPU SNARK proofs (or SPARK commitments) differ")
     log(f"[snark] card and CPU SNARK proofs byte-equal ({len(outs['cuda'][0])} B of JSON); "
         "a tampered evals_abc and a tampered s_R_row rejected")
+
+
+# Field multiplies of one (pair, point) term of each combination in
+# csrc/custom_round.cu: spark_entry4 3 + 2 + 2 + 4, spark_table 2 + 1 + 2.
+CUSTOM_MULS = {"spark_entry4": 11, "spark_table": 5}
+SNARK_RUNS = 5  # warm SNARK proves timed a form and instance
+
+
+def custom_bound(key: str, ah: int) -> tuple:
+    """A bind + evaluate round of K5 with previous active half ah: 2 ah rows
+    of each of the k tables read and ah written (k * 3 * ah * 88 B); k * ah
+    multiplies in the bind and CUSTOM_MULS[key] a point over ah / 2 pairs."""
+    from otti_tpu_torch.spartan.custom_kernels import CUDA_COMBS
+
+    _, k, _, degree = CUDA_COMBS[key]
+    return bound(k * 3 * ah * ROW_BYTES, k * ah + (ah // 2) * degree * CUSTOM_MULS[key])
+
+
+def _field_pool(seed: int) -> tuple:
+    """(4,096 canonical SCALAR values drawn from ``seed`` as limbs on the
+    card, rand(*shape): rows of it picked on the card)."""
+    from otti_tpu_torch.field.ops import SCALAR, ints_to_limbs
+
+    rng = random.Random(seed)
+    pool = torch.from_numpy(ints_to_limbs([rng.randrange(SCALAR.modulus) for _ in range(4096)])
+                            .reshape(4096, 22)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return pool, lambda *shape: pool[torch.randint(0, 4096, shape, generator=gen, device="cuda")]
+
+
+def _snark_instances() -> dict:
+    """The two SNARK instances of phase snark on the card with their SPARK
+    commitments: optdigits 3v8 as the CLI lowers it and the 2^15 R1CS;
+    name -> (R1CSDevice, SparkCommitment, vars, inputs)."""
+    from otti_tpu_torch import cli
+    from otti_tpu_torch.spartan import r1cs, spark
+
+    with open(os.path.join(REPO, "datasets", "SGD", "pmlb-real-extra.json")) as f:
+        params = json.load(f)["optdigits"]
+    shape, vars_, inputs, _, _ = cli.lower_sgd("optdigits", params)
+    big, zvars = r1cs.random_satisfiable(1 << 15, 1 << 15, seed=11)
+    out = {}
+    for name, sh, v, ins in (("optdigits", shape, vars_, inputs), ("r1cs2p15", big, zvars, [])):
+        dev = sh.to_device("cuda")
+        comm = spark.commit(dev)
+        out[name] = (dev, comm, v, ins)
+        log(f"[custom] {name}: {dev.num_cons} constraints, mu_n {comm.mu_n} (entry cube "
+            f"2^{comm.mu_n}, 9 tables), mu_x {comm.mu_x}, mu_y {comm.mu_y} (table cubes, 4 "
+            f"tables each)")
+    return out
+
+
+def _custom_checks(rec: dict, shapes: list) -> None:
+    """K5 == its plain version through whole sumchecks at ``shapes`` (key,
+    n): tables and constants in semi form, the first round, bound rounds
+    with the challenge as an int and in device memory in turn (and both
+    forms of one value compared), every round down to one pair, the bare
+    final bind; evaluations and the tables' active prefix after each round.
+    Then one bind + evaluate round at ah = n / 2 timed against the plain
+    version and the bound."""
+    from otti_tpu_torch.field import ops as F
+    from otti_tpu_torch.field.ops import SCALAR
+    from otti_tpu_torch.spartan import custom_kernels as CK
+
+    rng = random.Random(9)
+    _, rand = _field_pool(9)
+    cpu_gen = torch.Generator().manual_seed(9)
+    out = {"max_abs_err": 0, "shapes": []}
+    for key, n in shapes:
+        _, k, kc, degree = CK.CUDA_COMBS[key]
+        tag = f"K5 {key} n=2^{n.bit_length() - 1}"
+        base = _semi(rand(k * n), cpu_gen).reshape(k, n, 22)
+        consts = _semi(rand(kc), cpu_gen)
+        rs = [rng.randrange(SCALAR.modulus) for _ in range(n.bit_length() - 1)]
+        t_k, t_p = base.clone(), base.clone()
+        a = CK.custom_round_cuda(t_k, consts, key, degree)
+        b = CK.custom_round_plain(t_p, consts, key, degree)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: first round differs")
+        err = int((a - b).abs().max())
+        active, j = n, 0
+        while active > 1:
+            if j == 0:  # the same challenge as an int and in device memory: the same bits
+                t_int, t_dev = t_k.clone(), t_k.clone()
+                e_int = CK.custom_round_cuda(t_int, consts, key, degree, rs[0], active // 2)
+                e_dev = CK.custom_round_cuda(t_dev, consts, key, degree,
+                                             F.from_int(SCALAR, rs[0], "cuda"), active // 2)
+                if not (torch.equal(t_int, t_dev) and (e_int is None) == (e_dev is None)
+                        and (e_int is None or torch.equal(e_int, e_dev))):
+                    raise AssertionError(f"{tag}: int and device challenge differ")
+                del t_int, t_dev
+            r = rs[j]
+            if j % 2:  # in device memory, semi form
+                r = _semi(F.from_int(SCALAR, r, "cuda")[None], cpu_gen)[0].contiguous()
+            a = CK.custom_round_cuda(t_k, consts, key, degree, r, active // 2)
+            b = CK.custom_round_plain(t_p, consts, key, degree, r, active // 2)
+            active //= 2
+            j += 1
+            if (a is None) != (active == 1) or (b is None) != (active == 1):
+                raise AssertionError(f"{tag}: the bare final bind is the round to 1 row")
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"{tag}: evals differ in the round to {active} rows")
+            if not torch.equal(t_k[:, :active], t_p[:, :active]):
+                raise AssertionError(f"{tag}: tables differ after the round to {active} rows")
+            if a is not None:
+                err = max(err, int((a - b).abs().max()))
+        torch.cuda.synchronize()
+        tabs = base.clone()
+        r0 = rs[0]
+        t_kern = cuda_ms(lambda: CK.custom_round_cuda(tabs, consts, key, degree, r0, n // 2), 20,
+                         queue_ahead=True)
+        t_wrap = cuda_ms(lambda: CK.custom_round_cuda(tabs, consts, key, degree, r0, n // 2), 20)
+        t_plain = cuda_ms(lambda: CK.custom_round_plain(tabs, consts, key, degree, r0, n // 2), 2)
+        b_ms, b_by = custom_bound(key, n // 2)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["shapes"].append({"key": key, "n": n, "ah": n // 2, "ms": t_kern,
+                              "wrapper_ms": t_wrap, "plain_ms": t_plain, "bound_ms": b_ms,
+                              "bound_by": b_by})
+        log(f"[custom] {tag}: {n.bit_length() - 1} rounds and the bare final bind exact "
+            f"(challenges as ints and in device memory); a bind+eval round at ah=2^"
+            f"{n.bit_length() - 2}: kernel {t_kern:.4f} ms (through the wrapper {t_wrap:.4f} "
+            f"ms), plain {t_plain:.3f} ms, bound {b_ms:.4f} ms by {b_by} "
+            f"({100 * b_ms / t_kern:.0f}% of it)")
+    # the line's numbers: the largest entry round (the 2^15 instance's)
+    top = max((s for s in out["shapes"] if s["key"] == "spark_entry4"), key=lambda s: s["n"])
+    out.update({k: top[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")})
+    rec["custom"] = out
+
+
+def _custom_forms(rec: dict, shapes: list) -> None:
+    """prove_custom (a K5 launch and a fetch a round, host transcript) and
+    prove_custom_device (SPARK's: every round on the card, one fetch) on the
+    same full-width tables: equal rounds, challenges, finals, final claim
+    and host transcript afterwards; the rounds verify and the final claim
+    is the combination of the finals; warm times of each (median of 3);
+    no host sync inside prove_custom_device (OTTI_SYNC_CHECK=1)."""
+    from otti_tpu_torch.field import ops as F
+    from otti_tpu_torch.field.ops import SCALAR
+    from otti_tpu_torch.spartan import custom_kernels as CK
+    from otti_tpu_torch.spartan import sumcheck as SC
+    from otti_tpu_torch.transcript.merlin import Transcript
+
+    pool, rand = _field_pool(10)
+
+    def transcript():  # at the post-challenge offsets, as at SPARK's call sites
+        t = Transcript(b"custom smoke")
+        t.challenge_vector(b"rho", 2)
+        return t
+
+    out = {}
+    for key, n in shapes:
+        _, k, kc, degree = CK.CUDA_COMBS[key]
+        tag = f"{key} n=2^{n.bit_length() - 1}"
+        tables = tuple(rand(n) for _ in range(k))
+        consts = tuple(pool[:kc])
+        comb = CK._COMB_REGISTRY[key]
+        claim = F.to_int(SCALAR, F.sum_reduce(SCALAR, comb(consts, tables), axis=0))
+        before = [t.clone() for t in tables]
+        t_host, t_dev = transcript(), transcript()
+        got_host = SC.prove_custom(claim, tables, consts, key, degree, t_host, b"cs")
+        got_dev = SC.prove_custom_device(claim, tables, consts, key, degree, t_dev, b"cs")
+        if got_host != got_dev:
+            raise AssertionError(f"{tag}: prove_custom and prove_custom_device differ")
+        if t_host.challenge_scalar(b"after") != t_dev.challenge_scalar(b"after"):
+            raise AssertionError(f"{tag}: the host transcripts differ afterwards")
+        if not all(torch.equal(a, b) for a, b in zip(before, tables)):
+            raise AssertionError(f"{tag}: the caller's tables were changed")
+        rounds, rs, finals, e = got_dev
+        if SC.verify_custom(claim, rounds, degree, transcript(), b"cs") != (e, rs):
+            raise AssertionError(f"{tag}: the rounds do not verify")
+        fin = tuple(F.from_ints(SCALAR, [v], "cuda") for v in finals)
+        if F.to_int(SCALAR, comb(consts, fin)[0]) != e:
+            raise AssertionError(f"{tag}: the final claim is not the combination of the finals")
+        times = {}
+        for form, fn in (("host", SC.prove_custom), ("device", SC.prove_custom_device)):
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(claim, tables, consts, key, degree, transcript(), b"cs")
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            times[form] = _spread(walls)
+        out[tag] = {"rounds": len(rounds), "host_s": times["host"], "device_s": times["device"]}
+        log(f"[custom] {tag}: prove_custom == prove_custom_device ({len(rounds)} rounds, finals, "
+            f"final claim, transcript after), verified; warm prove_custom "
+            f"{_show(times['host'])}, prove_custom_device {_show(times['device'])}")
+    key, n = shapes[0]
+    _, k, kc, degree = CK.CUDA_COMBS[key]
+    tables = tuple(rand(n) for _ in range(k))
+    os.environ["OTTI_SYNC_CHECK"] = "1"
+    try:
+        SC.prove_custom_device(0, tables, tuple(pool[:kc]), key, degree, transcript(), b"cs")
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["OTTI_SYNC_CHECK"]
+    log(f"[custom] no host sync inside prove_custom_device ({key} n=2^{n.bit_length() - 1}, "
+        "OTTI_SYNC_CHECK=1)")
+    rec["custom_forms"] = out
+
+
+def _snark_warm(rec: dict, insts: dict) -> None:
+    """SNARK_RUNS warm proves of each instance, with SPARK's sumchecks in each
+    form the package has: "device" (prove_custom_device, SPARK's default)
+    and "host" (spark made to call prove_custom); median and spread, the
+    SPARK stage times, K1-K5 launches of one prove and, for optdigits, the
+    device launches and busy share of one under torch.profiler."""
+    import otti_tpu_torch
+    from otti_tpu_torch import _build, metrics
+    from otti_tpu_torch.spartan import snark, sumcheck
+
+    device_form = getattr(sumcheck, "prove_custom_device", None)
+    forms = ("device", "host") if device_form else ("host",)
+    log(f"[snark_warm] package {os.path.dirname(otti_tpu_torch.__file__)}; forms {forms}")
+    for name, (dev, comm, vars_, ins) in insts.items():
+        for form in forms:
+            if form == "host" and device_form:
+                sumcheck.prove_custom_device = sumcheck.prove_custom
+            try:
+                def fn():
+                    return snark.prove(dev, comm, vars_, ins)
+
+                proof = fn()
+                if not snark.verify(dev, comm, ins, proof):
+                    raise AssertionError(f"{name} ({form}): the SNARK proof does not verify")
+                walls, stages = [], collections.defaultdict(list)
+                for _ in range(SNARK_RUNS):
+                    before = dict(_build.LAUNCHES)
+                    metrics.reset()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    for k, v in metrics.snapshot().items():
+                        if k.endswith("_s"):
+                            stages[k].append(v)
+                launches = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+                prof = _profiled(fn) if name == "optdigits" else None
+            finally:
+                if device_form:
+                    sumcheck.prove_custom_device = device_form
+            res = {"s": _spread(walls), "launches": launches, "profile": prof,
+                   "stages": {k: _spread(v) for k, v in stages.items()}}
+            rec.setdefault("snark_warm", {})[f"{name}:{form}"] = res
+            st = res["stages"]
+            log(f"[snark_warm] {name} ({form}): warm prove {_show(res['s'])} over {SNARK_RUNS} "
+                f"runs; spark_entry_s {_show(st['spark_entry_s'])}, spark_tables_s "
+                f"{_show(st['spark_tables_s'])}; every stage's median "
+                + json.dumps({k: round(v["median"], 4) for k, v in st.items()})
+                + f"; launches {launches}"
+                + (f"; profiler: {prof['device_launches']} device launches, "
+                   f"{prof['device_ms']:.1f} ms of device time in {prof['profiled_wall_ms']:.1f} "
+                   f"ms ({100 * prof['busy_share']:.1f}% busy), hand-written kernels' ms "
+                   + json.dumps({k: round(v, 3) for k, v in prof["own_kernels_ms"].items()})
+                   if prof else ""))
+
+
+def phase_snark_warm(rec: dict) -> None:
+    """The warm SNARK proves of phase custom alone (with ``--tree``, another
+    commit's package in the same call)."""
+    _snark_warm(rec, _snark_instances())
+
+
+def phase_custom(rec: dict) -> None:
+    """SPARK's custom sumchecks: K5 against its plain version and
+    prove_custom against prove_custom_device at the SNARK instances' full
+    widths, then the warm SNARK proves."""
+    t0 = time.time()
+    insts = _snark_instances()
+    shapes = []
+    for _, comm, _, _ in insts.values():
+        for key, mu in (("spark_entry4", comm.mu_n), ("spark_table", comm.mu_x),
+                        ("spark_table", comm.mu_y)):
+            if mu and (key, 1 << mu) not in shapes:
+                shapes.append((key, 1 << mu))
+    shapes.sort(key=lambda s: (s[0] != "spark_entry4", -s[1]))
+    log(f"[custom] instances lowered and committed in {time.time() - t0:.1f}s; shapes {shapes}")
+    t0 = time.time()
+    _custom_checks(rec, shapes)
+    log(f"[custom] K5 held and timed in {time.time() - t0:.1f}s")
+    t0 = time.time()
+    _custom_forms(rec, shapes)
+    log(f"[custom] the two forms compared in {time.time() - t0:.1f}s")
+    _snark_warm(rec, insts)
 
 
 # Keccak-f[1600], 32-bit integer operations a state: 24 rounds of theta (20
@@ -1515,9 +1824,8 @@ def _profile_prove(rec: dict, tag: str, prove, covered: set, host_ops: bool = Tr
             f"{sum(e.count for e in rows)} rows' calls")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile:{tag}]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
-    for e in events:  # the two hand-written kernels, wherever they rank
-        if any(k in e.key for k in ("field_mul_kernel", "sumcheck_round_kernel", "keccak_kernel",
-                                    "ristretto_encode_kernel")):
+    for e in events:  # the hand-written kernels, wherever they rank
+        if any(k in e.key for k in OWN_KERNELS):
             log(f"[profile:{tag}]   own kernel {e.self_device_time_total / 1e3:9.3f} ms  "
                 f"{e.count:6d}x  {e.key[:70]}")
 
@@ -1661,7 +1969,7 @@ def _batch_cli(rec: dict, lps: list, tmp: str) -> None:
     from otti_tpu_torch import cli
 
     paths = [p for p, _, _, _ in lps[:4]]
-    for zk, mode, kernels in ((True, "batched-zk", None),
+    for zk, mode, kernels in ((True, "batched-zk", DFS_KERNELS),
                               (False, "batched", ("field_mul", "sumcheck_round", "keccak_f1600"))):
         out_dir = os.path.join(tmp, mode)
         _zero_launches()
@@ -1832,8 +2140,9 @@ def _peak_mib(fn) -> dict:
 
 def _profiled(fn) -> dict:
     """torch.profiler over one call of fn() (warm it first): device
-    launches, device time and its share of the wall.  The device events are
-    read from the profiler's raw results: building its per-operator table
+    launches, device time and its share of the wall, and the device time of
+    each hand-written kernel.  The device events are read from the
+    profiler's raw results: building its per-operator table
     (``key_averages``) takes seconds for every ten thousand events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1844,13 +2153,19 @@ def _profiled(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-          if e.device_type() == DeviceType.CUDA]
-    busy_ms = sum(n for n in ns if n > 0) / 1e6
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+    busy_ms = sum(e.duration_ns() for e in events) / 1e6
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
-    return {"device_launches": sum(1 for n in ns if n > 0), "device_ms": busy_ms,
-            "profiled_wall_ms": wall * 1e3, "busy_share": busy_ms / (wall * 1e3)}
+    own = collections.Counter()
+    for e in events:
+        for k in OWN_KERNELS:
+            if k in e.name():
+                own[k] += e.duration_ns() / 1e6
+    return {"device_launches": len(events), "device_ms": busy_ms,
+            "profiled_wall_ms": wall * 1e3, "busy_share": busy_ms / (wall * 1e3),
+            "own_kernels_ms": dict(own)}
 
 
 def _batch_profile(rec: dict, fns: dict) -> None:
@@ -2128,17 +2443,19 @@ def phase_mesh(rec: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--tree", help="import otti_tpu_torch from this checkout instead (to time "
+                                   "another commit's package in the same call)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(args.tree) if args.tree else REPO)
     rec: dict = {}
     fns = {"device": phase_device, "build": phase_build, "kernel1": phase_kernel1,
            "kernel2": phase_kernel2, "main": phase_main, "cpu_gpu": phase_cpu_gpu,
            "scale": phase_scale, "lp_sdp": phase_lp_sdp, "snark": phase_snark,
-           "device_fs": phase_device_fs, "profile": phase_profile, "batch": phase_batch,
+           "custom": phase_custom, "snark_warm": phase_snark_warm, "device_fs": phase_device_fs, "profile": phase_profile, "batch": phase_batch,
            "mesh": phase_mesh}
     for name in phases:
         t0 = time.time()
@@ -2160,15 +2477,19 @@ def main(argv=None) -> int:
          "otti_tpu/transcript/device.py:92"),
         ("ristretto", "ristretto_encode", "otti_tpu_torch/csrc/ristretto_encode.cu",
          "otti_tpu/curve/ristretto.py:61"),
+        ("custom", "custom_round", "otti_tpu_torch/csrc/custom_round.cu",
+         "otti_tpu/spartan/sumcheck.py:202"),
     ):
+        # K5's path is SNARK mode (phase snark); the others' the CLI's zk default
+        path = rec.get("launches_snark", {}) if key == "custom" else launches
         if key in rec:
             kernels.append({"name": cname, "route": "cuda", "source": src, "replaces": rep,
-                            "launches": launches.get(cname, 0),
+                            "launches": path.get(cname, 0),
                             "max_abs_err": rec[key]["max_abs_err"],
                             "ms": rec[key]["ms"], "plain_ms": rec[key]["plain_ms"],
                             "bound_ms": rec[key]["bound_ms"],
                             "bound_by": rec[key]["bound_by"],
-                            "library_ms": None,  # no PyTorch call computes either function
+                            "library_ms": None,  # no PyTorch call computes any of these functions
                             "wrapper_ms": rec[key]["wrapper_ms"],
                             "launches_transparent":
                                 rec.get("launches_transparent", {}).get(cname),
@@ -2179,7 +2500,7 @@ def main(argv=None) -> int:
                             "launches_batch": rec.get("launches_batch", {}).get(cname),
                             "launches_mesh": rec.get("launches_mesh", {}).get(cname),
                             **{k: v for k, v in rec[key].items()
-                               if k in ("base", "quad", "floor_ms", "sizes")},
+                               if k in ("base", "quad", "floor_ms", "sizes", "shapes")},
                             **({"device_challenge": rec["kernel2_device_challenge"]}
                                if key == "kernel2" and "kernel2_device_challenge" in rec
                                else {}),

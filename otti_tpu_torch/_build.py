@@ -37,7 +37,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-LAUNCHES = {"field_mul": 0, "sumcheck_round": 0, "keccak_f1600": 0, "ristretto_encode": 0}
+LAUNCHES = {"field_mul": 0, "sumcheck_round": 0, "keccak_f1600": 0, "ristretto_encode": 0,
+            "custom_round": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -64,6 +65,11 @@ _SIGNATURES = {
     "ristretto_encode": {
         "otti_ristretto_init": [_P],
         "otti_ristretto_encode": [_P, _P, _P, _P, _P, _LL, ctypes.c_int, _P],
+    },
+    "custom_round": {
+        "otti_custom_init": [_P],
+        "otti_custom_round": [_P, ctypes.c_int, _LL, ctypes.c_int, _P, ctypes.c_int, _P, _P,
+                              _LL, _LL, _P, _P, ctypes.c_int, _P],
     },
 }
 
@@ -112,7 +118,7 @@ def ristretto_consts() -> np.ndarray:
 # (csrc/device.cuh; keccak.cu has no init: its constants are compiled in,
 # csrc/keccak.cuh)
 _INIT_DATA = {"field_mul": field_consts, "sumcheck_round": field_consts,
-              "ristretto_encode": ristretto_consts}
+              "ristretto_encode": ristretto_consts, "custom_round": field_consts}
 
 
 def _build(jobs: list) -> None:

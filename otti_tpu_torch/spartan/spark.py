@@ -24,8 +24,11 @@ description by a logup (log-derivative) lookup argument:
 
 Every label, the order of appends and challenges and the order of
 ``entry_claims`` are the JAX package's: the proofs are byte-identical.  The
-device work is torch ops on the field multiply kernel (gathers, the
-combinations below, the inversions of ``field.ops.inv``, Hyrax rows); the
+three sumchecks run as the JAX package runs them, by
+``sumcheck.prove_custom_device``: every round on the device (kernel K5 with
+the combinations below, the device transcript) and one fetch a sumcheck.
+The rest of the device work is torch ops on the field multiply kernel
+(gathers, the inversions of ``field.ops.inv``, Hyrax rows); the
 prover-retained tensors of a ``SparkCommitment`` live on the R1CS's device.
 """
 
@@ -49,7 +52,8 @@ GENS = b"gens_spark"
 
 
 # ---------------------------------------------------------------------------
-# round combinations (registered once); exts are [..., 22], consts [22]
+# round combinations (registered once); exts are [..., 22], consts [22].
+# csrc/custom_round.cu (K5) computes the same two on the card.
 # ---------------------------------------------------------------------------
 
 def _comb_entry(consts, exts):
@@ -314,7 +318,7 @@ def prove_eval(comm: SparkCommitment, rx: list, ry: list, claimed: tuple,  # (eA
         sel = _sel_table([c1a, c1b, c1c, 0], n_blk, device)
         tables = (sel, comm.val, e_row, e_col, eq_n, inv_r_row, g_row, inv_r_col, g_col)
         consts = tuple(scalar(c) for c in (c2, c3, c4, c5))
-        entry_rounds, rho_star, finals, _ = sumcheck.prove_custom(
+        entry_rounds, rho_star, finals, _ = sumcheck.prove_custom_device(
             claim_e, tables, consts, "spark_entry4", 4, t, label + b"/entry"
         )
         metrics.add("sumcheck_rounds", comm.mu_n)
@@ -345,7 +349,7 @@ def prove_eval(comm: SparkCommitment, rx: list, ry: list, claimed: tuple,  # (eA
         claim_t = c6 * s_T % MOD
         with metrics.timed("spark_tables"):
             eq_t = mle.eq_table(_vec(rho_t, device))
-            rounds, sigma, finals_t, _ = sumcheck.prove_custom(
+            rounds, sigma, finals_t, _ = sumcheck.prove_custom_device(
                 claim_t, (m_tbl, invT_tbl, eq_t, gt), (scalar(c6), scalar(c7)),
                 "spark_table", 3, t, label + side_lbl + b"/table",
             )

@@ -1,26 +1,30 @@
 """Sumcheck prover/verifier, Spartan phases 1 and 2 and the SPARK layer's
 custom combinations (port of otti_tpu/spartan/sumcheck.py: lagrange_eval,
 prove_cubic, prove_quad, verify_rounds, register_comb, prove_custom,
-verify_custom).
+prove_custom_device, verify_custom).
 
 A round of phase 1 or 2 is one call of the fused round kernel
 (spartan/sumcheck_kernels.py) that binds the previous challenge into the
 tables IN PLACE and evaluates the next round polynomial, plus one
 device->host fetch of its 3 (or 2) evaluations for the host Merlin
-transcript.  A round with a registered combination is torch ops around the
-field multiply kernel, over all tables and all evaluation points at once,
-with the same one fetch.  The wire format and the transcript schedule are
-the JAX package's, so proofs are byte-identical.
+transcript.  A round with a registered combination is one call of the
+custom round kernel (spartan/custom_kernels.py, K5) on a stacked working
+copy of the tables: ``prove_custom`` fetches each round's evaluations for
+the host transcript, ``prove_custom_device`` (SPARK's form, as in the JAX
+package) runs every round's transcript on the device and fetches once.
+The wire format and the transcript schedule are the JAX package's, so
+proofs are byte-identical.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..field.fields import SCALAR
+from ..field.fields import SCALAR, limbs_to_int
 from ..transcript.merlin import Transcript
 
 from ..field import ops as F
+from .custom_kernels import _COMB_REGISTRY, _eval_points, custom_round, register_comb  # noqa: F401
 from .sumcheck_kernels import sumcheck_round
 
 MOD = SCALAR.modulus
@@ -45,25 +49,43 @@ def lagrange_eval(evals: list, r: int) -> int:
     return total
 
 
-def _prove(claim: int, tables: list, degree: int, transcript: Transcript, label: bytes):
-    n = tables[0].shape[0]
+def _absorb_round(e: int, ev: list, transcript: Transcript, label: bytes):
+    """One round on the host transcript: the values at 0, 2, ..., degree
+    absorbed (p(1) = e - p(0) is implied), the challenge drawn.  Returns
+    (the round's values at 0..degree, r, the next claim)."""
+    e0 = ev[0]
+    evals = [e0, (e - e0) % MOD] + ev[1:]
+    transcript.append_scalar(label + b"/e0", _scalar_bytes(e0))
+    for j, v in enumerate(ev[1:]):
+        transcript.append_scalar(label + b"/e%d" % (j + 2), _scalar_bytes(v))
+    r = transcript.challenge_scalar(label + b"/r")
+    return evals, r, lagrange_eval(evals, r)
+
+
+def _host_rounds(claim: int, n: int, round_fn, transcript: Transcript, label: bytes):
+    """The rounds of a sumcheck over n rows with the host transcript:
+    ``round_fn(r, prev_half)`` binds r into the tables (r None: the first
+    round, no bind) and returns the next round's evaluations on the device
+    (None after the bare final bind), fetched once a round.  Returns
+    (rounds, r_points, final claim)."""
     e = claim % MOD
     rounds, rs = [], []
-    evals_dev = sumcheck_round(tables, degree) if n > 1 else None
+    evals_dev = round_fn(None, None) if n > 1 else None
     active = n
     while active > 1:
         ev = F.to_ints(SCALAR, evals_dev)  # the round's one device->host fetch
-        e0, e1 = ev[0], (e - ev[0]) % MOD
-        evals = [e0, e1] + ev[1:]
-        transcript.append_scalar(label + b"/e0", _scalar_bytes(e0))
-        for j, v in enumerate(ev[1:]):
-            transcript.append_scalar(label + b"/e%d" % (j + 2), _scalar_bytes(v))
-        r = transcript.challenge_scalar(label + b"/r")
-        rs.append(r)
+        evals, r, e = _absorb_round(e, ev, transcript, label)
         rounds.append(evals)
-        e = lagrange_eval(evals, r)
-        evals_dev = sumcheck_round(tables, degree, r, active // 2)
+        rs.append(r)
+        evals_dev = round_fn(r, active // 2)
         active //= 2
+    return rounds, rs, e
+
+
+def _prove(claim: int, tables: list, degree: int, transcript: Transcript, label: bytes):
+    rounds, rs, e = _host_rounds(claim, tables[0].shape[0],
+                                 lambda r, ah: sumcheck_round(tables, degree, r, ah),
+                                 transcript, label)
     finals = tuple(F.to_int(SCALAR, t[0]) for t in tables)
     return rounds, rs, finals, e
 
@@ -83,70 +105,78 @@ def prove_quad(claim: int, pm, pz, transcript: Transcript, label: bytes):
 
 # ---------------------------------------------------------------------------
 # Custom-combination sumcheck (the SPARK layer): the round combination is
-# looked up in a registry by key, as in the JAX package.
+# looked up in a registry by key (custom_kernels.register_comb), as in the
+# JAX package.
 # ---------------------------------------------------------------------------
 
-_COMB_REGISTRY: dict = {}
-
-
-def register_comb(key: str, fn) -> None:
-    """fn(consts: tuple of [22] limb vectors, exts: tuple of [..., 22]
-    tensors, one per table) -> [..., 22] combined values per point (of
-    degree <= the sumcheck's ``degree`` in each variable)."""
-    _COMB_REGISTRY[key] = fn
-
-
-def _eval_points(degree: int) -> tuple:
-    return (0,) + tuple(range(2, degree + 1))
-
-
-def _custom_evals(stacked: torch.Tensor, half: int, consts: tuple, comb, degree: int):
-    """The round polynomial of sum comb(tables) over the pairs (t[i],
-    t[i + half]), i < half, at the points 0, 2, ..., degree -> canonical
-    [degree, 22].  ``stacked`` is [k, n, 22]; the extensions at every point
-    go through ``comb`` in one call ([points, half, 22] per table)."""
-    lo, cur = stacked[:, :half], stacked[:, half : 2 * half]  # the tables at X = 0, 1
-    d = F.sub(SCALAR, cur, lo)
-    exts = [lo]
-    for _ in range(2, degree + 1):
-        cur = F.add(SCALAR, cur, d)
-        exts.append(cur)
-    per_table = torch.stack(exts, dim=1)  # [k, points, half, 22]
-    vals = comb(consts, tuple(per_table.unbind(0)))
-    return F.canon(SCALAR, F.sum_reduce(SCALAR, vals, axis=1))
+def _working_copy(tables: tuple, consts: tuple):
+    """(the [k, n, 22] stacked copy that the rounds bind in place, the
+    [kc, 22] constants); the caller's tables are left as they are."""
+    return torch.stack(list(tables)), torch.stack(list(consts))
 
 
 def prove_custom(claim: int, tables: tuple, consts: tuple, key: str, degree: int,
                  transcript: Transcript, label: bytes):
     """Host-driven sumcheck of sum_x comb(consts, tables(x)) with a
-    registered round combination.  The tables ([n, 22] each) are left as
-    they are: the rounds bind a stacked copy in place, which never grows.
-    Wire format as the standard rounds (values at 0..degree, p(1) implied);
-    returns (rounds, r_points, final table values, final claim)."""
-    comb = _COMB_REGISTRY[key]
-    stacked = torch.stack(list(tables))  # [k, n, 22], the rounds' working copy
+    registered round combination: a ``custom_round`` a round and one fetch
+    of its evaluations for the host transcript.  The tables ([n, 22] each)
+    are left as they are.  Wire format as the standard rounds (values at
+    0..degree, p(1) implied); returns (rounds, r_points, final table
+    values, final claim)."""
+    stacked, cst = _working_copy(tables, consts)
+    rounds, rs, e = _host_rounds(claim, stacked.shape[1],
+                                 lambda r, ah: custom_round(stacked, cst, key, degree, r, ah),
+                                 transcript, label)
+    finals = tuple(F.to_ints(SCALAR, stacked[:, 0]))
+    return rounds, rs, finals, e
+
+
+def prove_custom_device(claim: int, tables: tuple, consts: tuple, key: str, degree: int,
+                        transcript: Transcript, label: bytes):
+    """Device-transcript form of prove_custom, SPARK's: the host transcript
+    continues on the tables' device, every round runs there (K5 evaluates,
+    the transcript absorbs the values and squeezes the challenge, the next
+    K5 launch binds it from device memory), and one packed fetch brings
+    the evaluations and the final table values back, with no host sync
+    between (``OTTI_SYNC_CHECK=1``).  The host then replays the rounds into
+    ``transcript``: the same bytes as prove_custom, so verify_custom is
+    unchanged.  The host transcript must sit at the post-challenge offsets
+    (every SPARK call site follows a challenge_vector).  The JAX package's
+    segments and shrinks (``_CUSTOM_SEG``, ``_shrink_kernel``) save it
+    compile time and have no counterpart here: K5 only ever reads the
+    active prefix of the tables."""
+    from .hybrid import _check_handoff, _fetch_packed, _no_host_sync
+
+    stacked, cst = _working_copy(tables, consts)
     n = stacked.shape[1]
+    mu = (n - 1).bit_length()
+    device = stacked.device
+    t = _check_handoff([transcript], device)
+    labels = [label + b"/e%d" % p for p in _eval_points(degree)]
+    with _no_host_sync(device):
+        evs = []
+        if mu:
+            ev = custom_round(stacked, cst, key, degree)
+            active = n
+            for _ in range(mu):
+                for i, lbl in enumerate(labels):
+                    t.append_scalar_limbs(lbl, ev[i])
+                r = t.challenge_scalar_limbs(label + b"/r")
+                evs.append(ev)
+                ev = custom_round(stacked, cst, key, degree, r, active // 2)
+                active //= 2
+        evals_all = torch.stack(evs) if evs else F.zeros((0, degree), device)
+        finals_dev = F.canon(SCALAR, stacked[:, 0])
+    (evals_np, finals_np), _ = _fetch_packed([evals_all, finals_dev], [])
+
+    # host replay: the absorb and challenge stream of prove_custom
     e = claim % MOD
     rounds, rs = [], []
-    active = n
-    while active > 1:
-        half = active // 2
-        # the round's one device->host fetch
-        ev = F.to_ints(SCALAR, _custom_evals(stacked, half, consts, comb, degree))
-        e0 = ev[0]
-        evals = [e0, (e - e0) % MOD] + ev[1:]
-        transcript.append_scalar(label + b"/e0", _scalar_bytes(e0))
-        for j, v in enumerate(ev[1:]):
-            transcript.append_scalar(label + b"/e%d" % (j + 2), _scalar_bytes(v))
-        r = transcript.challenge_scalar(label + b"/r")
+    for row in evals_np:
+        evals, r, e = _absorb_round(e, [limbs_to_int(x) for x in row], transcript, label)
         rounds.append(evals)
         rs.append(r)
-        e = lagrange_eval(evals, r)
-        lo, hi = stacked[:, :half], stacked[:, half:active]
-        r_limbs = F.from_int(SCALAR, r, stacked.device)
-        stacked[:, :half] = F.add(SCALAR, lo, F.mul(SCALAR, F.sub(SCALAR, hi, lo), r_limbs))
-        active = half
-    finals = tuple(F.to_ints(SCALAR, stacked[:, 0]))
+    finals = tuple(limbs_to_int(x) for x in finals_np)
     return rounds, rs, finals, e
 
 
