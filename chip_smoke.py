@@ -38,8 +38,9 @@ Phases (each prints a line; any failure exits non-zero):
   9. snark    SNARK mode (SPARK commitments of the matrices, timed apart as
               snark_setup) through the CLI's functions on optdigits and on
               the 2^15 R1CS of phase 7, cold then warm, with peak device
-              memory; K1, K2, K3 and K5 launched (SPARK's sumchecks run on
-              the device transcript); a 256-constraint R1CS proved on the
+              memory; K1, K2 and K5 launched (SPARK's sumchecks run each
+              round, its transcript step included, as one K5 launch); a
+              256-constraint R1CS proved on the
               card and on the CPU, the two proofs byte-equal; two tampered
               proofs rejected
  10. custom   SPARK's custom sumchecks at the full widths of both SNARK
@@ -47,8 +48,13 @@ Phases (each prints a line; any failure exits non-zero):
               version through whole sumchecks of both combinations (semi-form
               inputs, the first round, bound rounds with the challenge as an
               int and in device memory, down to one pair and the bare final
-              bind), a bind + evaluate round of each shape timed against the
-              plain version and the bound; prove_custom == prove_custom_device
+              bind); K5's fused entry (the round and its transcript step) ==
+              custom_round_fs_plain through whole sumchecks (evaluations,
+              the tables' active prefix, the transcript state and the
+              challenge after every round); a bind + evaluate round of each
+              shape timed, bare and fused, against the plain versions and the
+              bound, the fused round's extra time at the smallest shape as
+              its floor; prove_custom == prove_custom_device
               on the same tables, both timed; no host sync inside
               prove_custom_device (OTTI_SYNC_CHECK=1); then five warm SNARK
               proves of each instance with SPARK's sumchecks in the device
@@ -146,9 +152,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HOST_FS_KERNELS = ("field_mul", "sumcheck_round")  # the paths with the host transcript
 # the device-transcript NIZK paths (the CLI's defaults, batch, mesh)
 DFS_KERNELS = ("field_mul", "sumcheck_round", "keccak_f1600", "ristretto_encode")
-# SNARK mode: SPARK's custom sumchecks run K5 and the device transcript (K3);
-# its commitments are encoded on the host
-SNARK_KERNELS = ("field_mul", "sumcheck_round", "keccak_f1600", "custom_round")
+# SNARK mode: SPARK's custom sumchecks run K5, a round's transcript step
+# inside its launch; its commitments are encoded on the host
+SNARK_KERNELS = ("field_mul", "sumcheck_round", "custom_round")
 # the hand-written kernels' symbol names, as a profiler shows them
 OWN_KERNELS = ("field_mul_kernel", "sumcheck_round_kernel", "keccak_kernel",
                "ristretto_encode_kernel", "custom_round_kernel")
@@ -245,7 +251,8 @@ PTXAS_EARLIER = {"field_mul": "83 and 66 registers, no spills, 45,072 B shared",
                  "keccak": "26 registers, no spills, 440 B shared (one warp a state in shared "
                            "memory)",
                  "ristretto_encode": "126 registers, no spills",
-                 "custom_round": "none: new, the first build of K5"}
+                 "custom_round": "80 registers, no spills, 17,796 B static shared (before its "
+                                 "redesign: one kernel for both combinations)"}
 
 
 def phase_build(rec: dict) -> None:
@@ -273,7 +280,9 @@ def phase_build(rec: dict) -> None:
                               timeout=120).stdout
         ops = collections.Counter(m.group(1) for m in opcode.finditer(sass))
         log(f"[build] {name} SASS: {sum(ops.values())} instructions; "
-            + ", ".join(f"{c} {op}" for op, c in ops.most_common(8)))
+            + ", ".join(f"{c} {op}" for op, c in ops.most_common(8))
+            + (f"; shuffles {ops['SHFL']}, WARPSYNC {ops['WARPSYNC']}, ENDCOLLECTIVE "
+               f"{ops['ENDCOLLECTIVE']}" if ops["SHFL"] else ""))
 
 
 def _semi(limbs: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
@@ -868,20 +877,24 @@ def phase_snark(rec: dict) -> None:
         "a tampered evals_abc and a tampered s_R_row rejected")
 
 
-# Field multiplies of one (pair, point) term of each combination in
-# csrc/custom_round.cu: spark_entry4 3 + 2 + 2 + 4, spark_table 2 + 1 + 2.
-CUSTOM_MULS = {"spark_entry4": 11, "spark_table": 5}
+# Field multiplies of each combination in csrc/custom_round.cu: a
+# (pair, point) term's products without the constants (spark_entry4 3 + 2 +
+# 2, spark_table 1 + 2), and the constants once a point (4 and 2).
+CUSTOM_MULS = {"spark_entry4": (7, 4), "spark_table": (3, 2)}
 SNARK_RUNS = 5  # warm SNARK proves timed a form and instance
 
 
 def custom_bound(key: str, ah: int) -> tuple:
     """A bind + evaluate round of K5 with previous active half ah: 2 ah rows
     of each of the k tables read and ah written (k * 3 * ah * 88 B); k * ah
-    multiplies in the bind and CUSTOM_MULS[key] a point over ah / 2 pairs."""
+    multiplies in the bind, CUSTOM_MULS[key] a point over ah / 2 pairs and
+    once a point.  The fused round adds 400 B of transcript state, and
+    about three permutations of one state: nothing at these scales."""
     from otti_tpu_torch.spartan.custom_kernels import CUDA_COMBS
 
     _, k, _, degree = CUDA_COMBS[key]
-    return bound(k * 3 * ah * ROW_BYTES, k * ah + (ah // 2) * degree * CUSTOM_MULS[key])
+    per_pair, per_point = CUSTOM_MULS[key]
+    return bound(k * 3 * ah * ROW_BYTES, k * ah + degree * ((ah // 2) * per_pair + per_point))
 
 
 def _field_pool(seed: int) -> tuple:
@@ -918,14 +931,54 @@ def _snark_instances() -> dict:
     return out
 
 
+# the label of each combination's sumcheck at SPARK's call sites (spark.py)
+CUSTOM_LABELS = {"spark_entry4": b"spark/entry", "spark_table": b"spark/row/table"}
+
+
+def _custom_fs_checks(key: str, n: int, base, consts, cpu_gen) -> None:
+    """K5's fused entry == custom_round_fs_plain through a whole sumcheck
+    from ``base`` and a random transcript state: the evaluations, the
+    tables' active prefix, the state and the challenge after every round,
+    then the bare final bind."""
+    from otti_tpu_torch.spartan import custom_kernels as CK
+
+    _, k, kc, degree = CK.CUDA_COMBS[key]
+    tag = f"K5 fused {key} n=2^{n.bit_length() - 1}"
+    mu = n.bit_length() - 1
+    prog = CK.round_program(CUSTOM_LABELS[key], degree, "cuda")
+    state = torch.randint(0, 256, (200,), generator=cpu_gen, dtype=torch.uint8).cuda()
+    t_k, t_p = base.clone(), base.clone()
+    s_k, s_p = state.clone(), state.clone()
+    e_k, e_p = (torch.empty((mu, degree, 22), dtype=torch.int32, device="cuda") for _ in range(2))
+    r_k, r_p = (torch.empty((mu, 22), dtype=torch.int32, device="cuda") for _ in range(2))
+    for j in range(mu):
+        prev = (r_k[j - 1], n >> j) if j else (None, None)
+        CK.custom_round_fs_cuda(t_k, consts, key, degree, s_k, prog, e_k[j], r_k[j], *prev)
+        prev = (r_p[j - 1], n >> j) if j else (None, None)
+        CK.custom_round_fs_plain(t_p, consts, key, degree, s_p, prog, e_p[j], r_p[j], *prev)
+        act = n >> j
+        for what, a, b in (("evals", e_k[j], e_p[j]), ("state", s_k, s_p),
+                           ("challenge", r_k[j], r_p[j]), ("tables", t_k[:, :act], t_p[:, :act])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag}: the {what} differ after round {j}")
+    CK.custom_round_cuda(t_k, consts, key, degree, r_k[mu - 1], 1)
+    CK.custom_round_plain(t_p, consts, key, degree, r_p[mu - 1], 1)
+    if not torch.equal(t_k[:, :1], t_p[:, :1]):
+        raise AssertionError(f"{tag}: the final bind differs")
+
+
 def _custom_checks(rec: dict, shapes: list) -> None:
     """K5 == its plain version through whole sumchecks at ``shapes`` (key,
     n): tables and constants in semi form, the first round, bound rounds
     with the challenge as an int and in device memory in turn (and both
     forms of one value compared), every round down to one pair, the bare
     final bind; evaluations and the tables' active prefix after each round.
-    Then one bind + evaluate round at ah = n / 2 timed against the plain
-    version and the bound."""
+    The fused entry likewise against custom_round_fs_plain
+    (_custom_fs_checks).  Then one bind + evaluate round at ah = n / 2 (the
+    first bind: rows canonicalised) and at ah = n / 4 (rows the kernel
+    wrote) timed, bare and fused, against the plain versions and the
+    bound; the fused round's extra time at the smallest table round is
+    K5's floor (its transcript step in one warp)."""
     from otti_tpu_torch.field import ops as F
     from otti_tpu_torch.field.ops import SCALAR
     from otti_tpu_torch.spartan import custom_kernels as CK
@@ -972,26 +1025,65 @@ def _custom_checks(rec: dict, shapes: list) -> None:
                 raise AssertionError(f"{tag}: tables differ after the round to {active} rows")
             if a is not None:
                 err = max(err, int((a - b).abs().max()))
+        _custom_fs_checks(key, n, base, consts, cpu_gen)
         torch.cuda.synchronize()
-        tabs = base.clone()
+        # timing: a bind + evaluate round, bare and fused, at the first bind
+        # (ah = n / 2, rows canonicalised) and at the next (ah = n / 4, rows
+        # the kernel wrote)
         r0 = rs[0]
-        t_kern = cuda_ms(lambda: CK.custom_round_cuda(tabs, consts, key, degree, r0, n // 2), 20,
-                         queue_ahead=True)
-        t_wrap = cuda_ms(lambda: CK.custom_round_cuda(tabs, consts, key, degree, r0, n // 2), 20)
-        t_plain = cuda_ms(lambda: CK.custom_round_plain(tabs, consts, key, degree, r0, n // 2), 2)
-        b_ms, b_by = custom_bound(key, n // 2)
+        fs = (torch.zeros(200, dtype=torch.uint8, device="cuda"),
+              CK.round_program(CUSTOM_LABELS[key], degree, "cuda"),
+              torch.empty((degree, 22), dtype=torch.int32, device="cuda"),
+              torch.empty(22, dtype=torch.int32, device="cuda"))
+
+        def times(tabs, ah, suffix=""):
+            def bare():
+                return CK.custom_round_cuda(tabs, consts, key, degree, r0, ah)
+
+            def fused():
+                CK.custom_round_fs_cuda(tabs, consts, key, degree, *fs, r0, ah)
+
+            out = {"ms": cuda_ms(bare, 20, queue_ahead=True),
+                   "fs_ms": cuda_ms(fused, 20, queue_ahead=True),
+                   "fs_plain_ms": cuda_ms(lambda: CK.custom_round_fs_plain(
+                       tabs, consts, key, degree, *fs, r0, ah), 2)}
+            if not suffix:
+                out.update(wrapper_ms=cuda_ms(bare, 20), fs_wrapper_ms=cuda_ms(fused, 20),
+                           plain_ms=cuda_ms(lambda: CK.custom_round_plain(
+                               tabs, consts, key, degree, r0, ah), 2))
+            return {k + suffix: v for k, v in out.items()}
+
+        row = {"key": key, "n": n, "ah": n // 2, **times(base.clone(), n // 2)}
+        if n >= 4:
+            tabs = base.clone()
+            CK.custom_round_cuda(tabs, consts, key, degree, r0, n // 2)  # rows [0, n / 2) canonical
+            row.update(ah_next=n // 4, bound_ms_next=custom_bound(key, n // 4)[0],
+                       **times(tabs, n // 4, "_next"))
+        row["bound_ms"], row["bound_by"] = custom_bound(key, n // 2)
         out["max_abs_err"] = max(out["max_abs_err"], err)
-        out["shapes"].append({"key": key, "n": n, "ah": n // 2, "ms": t_kern,
-                              "wrapper_ms": t_wrap, "plain_ms": t_plain, "bound_ms": b_ms,
-                              "bound_by": b_by})
+        out["shapes"].append(row)
         log(f"[custom] {tag}: {n.bit_length() - 1} rounds and the bare final bind exact "
-            f"(challenges as ints and in device memory); a bind+eval round at ah=2^"
-            f"{n.bit_length() - 2}: kernel {t_kern:.4f} ms (through the wrapper {t_wrap:.4f} "
-            f"ms), plain {t_plain:.3f} ms, bound {b_ms:.4f} ms by {b_by} "
-            f"({100 * b_ms / t_kern:.0f}% of it)")
-    # the line's numbers: the largest entry round (the 2^15 instance's)
+            f"(challenges as ints and in device memory), the fused entry exact through the "
+            f"sumcheck (evaluations, tables, state and challenge every round); a bind+eval "
+            f"round at ah=2^{n.bit_length() - 2}: bare {row['ms']:.4f} ms (through the wrapper "
+            f"{row['wrapper_ms']:.4f} ms), fused {row['fs_ms']:.4f} ms (wrapper "
+            f"{row['fs_wrapper_ms']:.4f}), plain {row['plain_ms']:.3f} ms, fused plain "
+            f"{row['fs_plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+            f"({100 * row['bound_ms'] / row['ms']:.0f}% of it)"
+            + (f"; at ah=2^{n.bit_length() - 3} (rows the kernel wrote): bare "
+               f"{row['ms_next']:.4f} ms, fused {row['fs_ms_next']:.4f} ms, fused plain "
+               f"{row['fs_plain_ms_next']:.3f} ms, bound {row['bound_ms_next']:.4f} ms"
+               if "ms_next" in row else ""))
+    # the line's numbers: the largest entry round (the 2^15 instance's), bare
+    # and fused (the fused entry is the one the device form runs every round)
     top = max((s for s in out["shapes"] if s["key"] == "spark_entry4"), key=lambda s: s["n"])
-    out.update({k: top[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")})
+    out.update({k: top[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "fs_ms", "fs_wrapper_ms", "fs_plain_ms")})
+    low = min((s for s in out["shapes"] if s["key"] == "spark_table"), key=lambda s: s["n"])
+    out["floor_ms"] = low["fs_ms"] - low["ms"]
+    log(f"[custom] K5's floor: the fused round's extra time over the bare one at "
+        f"{low['key']} ah=2^{low['n'].bit_length() - 2}: {out['floor_ms']:.4f} ms (the round's "
+        "transcript step, one warp)")
     rec["custom"] = out
 
 
@@ -2500,7 +2592,8 @@ def main(argv=None) -> int:
                             "launches_batch": rec.get("launches_batch", {}).get(cname),
                             "launches_mesh": rec.get("launches_mesh", {}).get(cname),
                             **{k: v for k, v in rec[key].items()
-                               if k in ("base", "quad", "floor_ms", "sizes", "shapes")},
+                               if k in ("base", "quad", "fs_ms", "fs_wrapper_ms", "fs_plain_ms",
+                                        "floor_ms", "sizes", "shapes")},
                             **({"device_challenge": rec["kernel2_device_challenge"]}
                                if key == "kernel2" and "kernel2_device_challenge" in rec
                                else {}),

@@ -69,7 +69,10 @@ _SIGNATURES = {
     "custom_round": {
         "otti_custom_init": [_P],
         "otti_custom_round": [_P, ctypes.c_int, _LL, ctypes.c_int, _P, ctypes.c_int, _P, _P,
-                              _LL, _LL, _P, _P, ctypes.c_int, _P],
+                              _LL, _LL, ctypes.c_int, _P, _P, ctypes.c_int, _P],
+        "otti_custom_round_fs": [_P, ctypes.c_int, _LL, ctypes.c_int, _P, ctypes.c_int, _P, _P,
+                                 _LL, _LL, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P],
     },
 }
 

@@ -1,11 +1,13 @@
-// The device arithmetic of field.cuh, ristretto.cuh and keccak.cuh compiled
-// for the host, so that a CPU test can hold the very code the kernels run
-// against Python integers, the JAX package and the host library:
+// The device arithmetic of field.cuh, ristretto.cuh, keccak.cuh and
+// strobe.cuh compiled for the host, so that a CPU test can hold the very
+// code the kernels run against Python integers, the JAX package and the host
+// library:
 //   g++ -O2 -std=c++17 -shared -fPIC -o libotti_field_host.so host_check.cpp
 // No kernel is built from this file.
 #include "field.cuh"
 #include "ristretto.cuh"
 #include "keccak.cuh"
+#include "strobe.cuh"
 
 extern "C" void otti_host_set_consts(const int32_t* consts) {
   set_field_consts(consts);
@@ -91,4 +93,26 @@ extern "C" void otti_host_keccak_tables(uint64_t* rc, int32_t* pi_src, int32_t* 
   memcpy(rc, KECCAK_RC, sizeof(KECCAK_RC));
   memcpy(pi_src, KECCAK_PI_SRC, sizeof(KECCAK_PI_SRC));
   memcpy(pi_rot, KECCAK_PI_ROT, sizeof(KECCAK_PI_ROT));
+}
+
+// A sumcheck round's transcript step as kernel 5's fused entry runs it
+// (strobe.cuh's merlin_round): state (200 bytes, in place) at offsets[0..2]
+// = pos, pos_begin, cur_flags (updated) absorbs the values (32 bytes each)
+// under the labels of prog and squeezes 64 bytes into out64.
+extern "C" void otti_host_merlin_round(uint8_t* state, int32_t* offsets, const uint8_t* prog,
+                                       const uint8_t* values32, uint8_t* out64) {
+  uint64_t lanes[KECCAK_LANES];  // the state 8-byte aligned, as in shared memory
+  memcpy(lanes, state, sizeof(lanes));
+  const StrobeWarp w;
+  Strobe s = {reinterpret_cast<uint8_t*>(lanes), offsets[0], offsets[1], offsets[2]};
+  merlin_round(w, s, prog, values32, out64);
+  memcpy(state, lanes, sizeof(lanes));
+  offsets[0] = s.pos;
+  offsets[1] = s.pos_begin;
+  offsets[2] = s.cur_flags;
+}
+
+// limbs[22 i ..] = the 64 little-endian bytes b[64 i ..] mod l, canonical.
+extern "C" void otti_host_scalar_from_le64(const uint8_t* b, int32_t* limbs, long long n) {
+  for (long long i = 0; i < n; ++i) fe_unpack(scalar_from_le64(b + 64 * i), limbs + OTTI_NL * i);
 }

@@ -57,9 +57,10 @@ from ..field import ops as F
 from ..field.fields import N_LIMBS, SCALAR
 from ..msm import pippenger
 from ..spartan import commitments, hybrid, mle, r1cs
-from ..spartan.fused import _POST_CHALLENGE, assemble_plain_proof
+from ..spartan.fused import assemble_plain_proof
 from ..spartan.nizk import GENS_LABEL, PROTO, _hyrax_dims, _sb, _vec
 from ..spartan.sumcheck_kernels import sumcheck_round
+from ..transcript.device import POST_CHALLENGE
 from ..transcript.merlin import Transcript
 
 MOD = SCALAR.modulus
@@ -353,7 +354,7 @@ def _local_phase(sh: _Shards, t, tables: list, degree: int, label: bytes) -> tup
     evals_l, rs = [], []
 
     def step(evals, _):
-        assert t.strobe.offsets == _POST_CHALLENGE, "round not at the post-challenge offsets"
+        assert t.strobe.offsets == POST_CHALLENGE, "round not at the post-challenge offsets"
         for i, lbl in enumerate(labels):
             t.append_scalar_limbs(lbl, evals[i])
         evals_l.append(evals)

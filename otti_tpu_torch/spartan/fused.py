@@ -12,7 +12,7 @@ host then replays the transcript over them to assemble the proof object
 
 Every challenge ends with the sponge at byte 64 of a fresh operation frame
 (a 64-byte PRF squeeze after a forced permutation), so every round of a
-phase starts at the same offsets, ``_POST_CHALLENGE``; the round loop
+phase starts at the same offsets, ``POST_CHALLENGE``; the round loop
 asserts it.  In the JAX package that periodicity lets a phase compile as
 one scan body; here a phase is a Python loop of kernel-2 launches and
 transcript ops, and the JAX package's split between this single-dispatch
@@ -35,16 +35,12 @@ from ..curve import ristretto
 from ..field import ops as F
 from ..field.fields import SCALAR, limbs_to_int
 from ..msm import pippenger
-from ..transcript.device import DeviceTranscript
-from ..transcript.merlin import FLAG_A, FLAG_C, FLAG_I, Transcript
+from ..transcript.device import POST_CHALLENGE, DeviceTranscript
+from ..transcript.merlin import Transcript
 from . import commitments, nizk, r1cs, sumcheck
 from .sumcheck_kernels import sumcheck_round
 
 MOD = SCALAR.modulus
-
-# sponge offsets at the start of every in-phase round: each challenge ends
-# with run_f (C-flag force) + a 64-byte squeeze => pos 64, fresh op frame
-_POST_CHALLENGE = (64, 0, FLAG_I | FLAG_A | FLAG_C)
 
 
 def _ints(arr: np.ndarray):
@@ -75,7 +71,7 @@ def _round_scan(t: DeviceTranscript, tables: list, degree: int, label: bytes):
     rounds, rs = [], []
     active = n
     for _ in range(mu):
-        assert t.strobe.offsets == _POST_CHALLENGE, "round not at the post-challenge offsets"
+        assert t.strobe.offsets == POST_CHALLENGE, "round not at the post-challenge offsets"
         for i, lbl in enumerate(labels):
             t.append_scalar_limbs(lbl, evals[..., i, :])
         r = t.challenge_scalar_limbs(label + b"/r")

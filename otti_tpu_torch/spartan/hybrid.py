@@ -49,10 +49,10 @@ import torch
 from .. import metrics
 from ..field import ops as F
 from ..field.fields import N_LIMBS, SCALAR
-from ..transcript.device import DeviceStrobe, DeviceTranscript, export_host_strobe
+from ..transcript.device import POST_CHALLENGE, DeviceStrobe, DeviceTranscript, export_host_strobe
 from ..transcript.merlin import Transcript, transcript_from_strobe_state
 from . import mle, r1cs
-from .fused import _POST_CHALLENGE, _round_scan
+from .fused import _round_scan
 
 MOD = SCALAR.modulus
 
@@ -114,11 +114,11 @@ def _check_handoff(ts: list, device) -> DeviceTranscript:
     states = []
     for t in ts:
         st, pos, pos_begin, flags = export_host_strobe(t.strobe)
-        assert (pos, pos_begin, flags) == _POST_CHALLENGE, (
+        assert (pos, pos_begin, flags) == POST_CHALLENGE, (
             "host transcript not at the post-challenge offsets")
         states.append(st)
     state = torch.from_numpy(np.stack(states) if len(states) > 1 else states[0]).to(device)
-    return DeviceTranscript(_strobe=DeviceStrobe.from_state(state, *_POST_CHALLENGE))
+    return DeviceTranscript(_strobe=DeviceStrobe.from_state(state, *POST_CHALLENGE))
 
 
 def _fork(t: Transcript) -> Transcript:

@@ -11,7 +11,8 @@ transcript.  A round with a registered combination is one call of the
 custom round kernel (spartan/custom_kernels.py, K5) on a stacked working
 copy of the tables: ``prove_custom`` fetches each round's evaluations for
 the host transcript, ``prove_custom_device`` (SPARK's form, as in the JAX
-package) runs every round's transcript on the device and fetches once.
+package) runs every round with its transcript step as one call of the
+kernel's fused entry on the device and fetches once.
 The wire format and the transcript schedule are the JAX package's, so
 proofs are byte-identical.
 """
@@ -20,11 +21,12 @@ from __future__ import annotations
 
 import torch
 
-from ..field.fields import SCALAR, limbs_to_int
+from ..field.fields import N_LIMBS, SCALAR, limbs_to_int
 from ..transcript.merlin import Transcript
 
 from ..field import ops as F
-from .custom_kernels import _COMB_REGISTRY, _eval_points, custom_round, register_comb  # noqa: F401
+from .custom_kernels import (_COMB_REGISTRY, _eval_points, custom_round,  # noqa: F401
+                             custom_round_fs, register_comb, round_program)
 from .sumcheck_kernels import sumcheck_round
 
 MOD = SCALAR.modulus
@@ -134,17 +136,20 @@ def prove_custom(claim: int, tables: tuple, consts: tuple, key: str, degree: int
 def prove_custom_device(claim: int, tables: tuple, consts: tuple, key: str, degree: int,
                         transcript: Transcript, label: bytes):
     """Device-transcript form of prove_custom, SPARK's: the host transcript
-    continues on the tables' device, every round runs there (K5 evaluates,
-    the transcript absorbs the values and squeezes the challenge, the next
-    K5 launch binds it from device memory), and one packed fetch brings
-    the evaluations and the final table values back, with no host sync
-    between (``OTTI_SYNC_CHECK=1``).  The host then replays the rounds into
-    ``transcript``: the same bytes as prove_custom, so verify_custom is
-    unchanged.  The host transcript must sit at the post-challenge offsets
-    (every SPARK call site follows a challenge_vector).  The JAX package's
-    segments and shrinks (``_CUSTOM_SEG``, ``_shrink_kernel``) save it
-    compile time and have no counterpart here: K5 only ever reads the
-    active prefix of the tables."""
+    continues on the tables' device and every round runs there as one
+    ``custom_round_fs`` (K5 binds the previous challenge from device
+    memory, evaluates, absorbs the values into the transcript and squeezes
+    the next challenge), the evaluations and challenges going into
+    preallocated buffers; the bare final bind is a plain K5 launch.  One
+    packed fetch brings the evaluations and the final table values back,
+    with no host sync between (``OTTI_SYNC_CHECK=1``).  The host then
+    replays the rounds into ``transcript``: the same bytes as prove_custom,
+    so verify_custom is unchanged.  The host transcript must sit at the
+    post-challenge offsets (every SPARK call site follows a
+    challenge_vector), where every round's transcript step starts and ends.
+    The JAX package's segments and shrinks (``_CUSTOM_SEG``,
+    ``_shrink_kernel``) save it compile time and have no counterpart here:
+    K5 only ever reads the active prefix of the tables."""
     from .hybrid import _check_handoff, _fetch_packed, _no_host_sync
 
     stacked, cst = _working_copy(tables, consts)
@@ -152,20 +157,15 @@ def prove_custom_device(claim: int, tables: tuple, consts: tuple, key: str, degr
     mu = (n - 1).bit_length()
     device = stacked.device
     t = _check_handoff([transcript], device)
-    labels = [label + b"/e%d" % p for p in _eval_points(degree)]
+    prog = round_program(label, degree, device) if mu else None
     with _no_host_sync(device):
-        evs = []
+        evals_all = torch.empty((mu, degree, N_LIMBS), dtype=torch.int32, device=device)
+        rs_dev = torch.empty((mu, N_LIMBS), dtype=torch.int32, device=device)
+        for j in range(mu):
+            custom_round_fs(stacked, cst, key, degree, t.strobe.state, prog, evals_all[j],
+                            rs_dev[j], rs_dev[j - 1] if j else None, n >> j if j else None)
         if mu:
-            ev = custom_round(stacked, cst, key, degree)
-            active = n
-            for _ in range(mu):
-                for i, lbl in enumerate(labels):
-                    t.append_scalar_limbs(lbl, ev[i])
-                r = t.challenge_scalar_limbs(label + b"/r")
-                evs.append(ev)
-                ev = custom_round(stacked, cst, key, degree, r, active // 2)
-                active //= 2
-        evals_all = torch.stack(evs) if evs else F.zeros((0, degree), device)
+            custom_round(stacked, cst, key, degree, rs_dev[mu - 1], 1)
         finals_dev = F.canon(SCALAR, stacked[:, 0])
     (evals_np, finals_np), _ = _fetch_packed([evals_all, finals_dev], [])
 

@@ -39,10 +39,9 @@ from ..curve import ristretto
 from ..field import ops as F
 from ..field.fields import N_LIMBS, SCALAR, ints_to_limbs, limbs_to_int
 from ..msm import pippenger
-from ..transcript.device import DeviceTranscript
+from ..transcript.device import POST_CHALLENGE, DeviceTranscript
 from ..transcript.merlin import Transcript
 from . import r1cs
-from .fused import _POST_CHALLENGE
 from .nizk import GENS_LABEL, _hyrax_dims, _sb
 from .sigma import DotProductProof, EqualityProof, ProductProof
 from .sumcheck_kernels import sumcheck_round
@@ -143,7 +142,7 @@ def _zk_round_from_evals(label: bytes, degree: int, tbl: dict, t: DeviceTranscri
         """rows of degree + 2 scalars (the blind last) -> points over G_0..G_degree, H."""
         return _commit_batch(tbl, degree + 1, rows)
 
-    assert t.strobe.offsets == _POST_CHALLENGE, "round not at the post-challenge offsets"
+    assert t.strobe.offsets == POST_CHALLENGE, "round not at the post-challenge offsets"
     # group 1 (independent of every challenge): C_poly and delta
     enc_g1 = ristretto.encode(commit_batch(
         [list(coeffs.unbind(-2)) + [b_poly], list(d_vec.unbind(-2)) + [r_delta]]))
@@ -407,7 +406,7 @@ def assemble_zk_proof(dev: r1cs.R1CSDevice, rng, comm_enc: list, got: dict) -> Z
     # (same rng position -> byte-identical proofs)
     from ..transcript.merlin import transcript_from_strobe_state
 
-    t_tail = transcript_from_strobe_state(got["state2"].tobytes(), *_POST_CHALLENGE)
+    t_tail = transcript_from_strobe_state(got["state2"].tobytes(), *POST_CHALLENGE)
     gens = Gens(_max_gens(dev), GENS_LABEL)
     with metrics.timed("host_decode"):
         u_limb, tail_vals, rys_limb = got["u"], got["tail_vals"], got["rys"]

@@ -47,6 +47,9 @@ from .keccak import _RC
 from .merlin import FLAG_A, FLAG_C, FLAG_I, FLAG_K, FLAG_M, FLAG_T, Strobe128  # noqa: F401
 
 _RATE = 166  # STROBE-128 rate in bytes
+# sponge offsets after every challenge: each ends with run_f (C-flag force)
+# and a 64-byte squeeze => pos 64, fresh op frame
+POST_CHALLENGE = (64, 0, FLAG_I | FLAG_A | FLAG_C)
 U8 = torch.uint8
 I64 = torch.int64
 _M32 = 0xFFFFFFFF

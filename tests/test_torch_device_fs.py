@@ -31,6 +31,7 @@ from otti_tpu_torch import cli
 from otti_tpu_torch.field import ops as F
 from otti_tpu_torch.spartan import fused, hybrid, nizk, r1cs, serial, zkfused, zknizk
 from otti_tpu_torch.spartan import sumcheck_kernels as SK
+from otti_tpu_torch.transcript.device import POST_CHALLENGE
 from otti_tpu_torch.transcript.merlin import Transcript
 from tests.test_fused import _random_r1cs
 from tests.test_nizk import toy_instance
@@ -138,7 +139,7 @@ def test_handoff_wants_the_post_challenge_offsets():
     with pytest.raises(AssertionError, match="post-challenge"):
         hybrid._check_handoff([t], "cpu")
     t.challenge_scalar(b"c")
-    assert hybrid._check_handoff([t], "cpu").strobe.offsets == hybrid._POST_CHALLENGE
+    assert hybrid._check_handoff([t], "cpu").strobe.offsets == POST_CHALLENGE
 
 
 # ---- the command line -----------------------------------------------------
