@@ -119,6 +119,22 @@ Phases (each prints a line; any failure exits non-zero):
               (OTTI_SYNC_CHECK=1); the LP at k = 1, 2, 4: five warm runs,
               kernel and device launches, peak memory; cli.run_lp with --mesh
               (auto: k = 1 on one card)
+ 15. dist     proving across processes (runtime.init_distributed; the CLI's
+              --coordinator, --num-hosts, --host-id): the var-base MSM
+              (msm/pippenger.py::msm) on the card == the host library's at
+              n = 96, 2^10, 2^16 (time, K1 launches, peak memory); two ranks
+              on the one card under gloo: python -m otti_tpu_torch.cli --lp
+              on the LP 117 x 225 with --mesh 2, transparent and zk, every
+              rank verified, rank 0 alone writing --out, its transparent
+              proof hybrid.prove's in one process; this script's
+              --dist-worker as two ranks: hybrid_sharded.prove_zk across
+              them == hybrid.prove_zk (one seed) on each, every kernel of the
+              path launched on each (the counts set to 0 just before, read
+              just after), a tampered proof rejected, sharded.py's four
+              functions == one shard at 2^14 rows, five warm proves (median,
+              launches, device launches) against one process at k = 2 and
+              1; with two cards or more the same under NCCL, a card a rank,
+              at W = 2 (and 4), with no host sync (OTTI_SYNC_CHECK)
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -146,7 +162,7 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "kernel1", "kernel2", "main", "cpu_gpu", "scale", "lp_sdp", "snark",
-          "custom", "device_fs", "profile", "batch", "mesh")
+          "custom", "device_fs", "profile", "batch", "mesh", "dist")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 HOST_FS_KERNELS = ("field_mul", "sumcheck_round")  # the paths with the host transcript
@@ -2532,23 +2548,353 @@ def phase_mesh(rec: dict) -> None:
         log(f"[mesh] the CLI in {time.time() - t0:.1f}s")
 
 
+DIST_RUNS = 5  # warm runs of the sharded zk prove timed in phase dist
+DIST_TIMEOUT = 300  # seconds a rank of phase dist may take
+DIST_SEED = bytes(range(32))
+MSM_SIZES = (96, 1 << 10, 1 << 16)  # the var-base MSM on the card in phase dist
+
+
+def _lower_lp(path: str) -> tuple:
+    from otti_tpu_torch.codegen import lp_cert
+    from otti_tpu_torch.io import mps
+    from otti_tpu_torch.oracle import lp_oracle
+
+    prob = mps.parse_mps(path)
+    x, y, _ = lp_oracle.solve(prob)
+    return lp_cert.build(prob, x, y)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(tag: str, argvs: list, env: dict, labels=None) -> list:
+    """One subprocess a rank (``labels``: their names, rank0, rank1, ... by
+    default), all started together; -> [(stdout, stderr)].
+    Any rank that fails, outlives DIST_TIMEOUT or leaves no output fails
+    the phase; every process is ended before this returns."""
+    labels = labels or [f"rank{r}" for r in range(len(argvs))]
+    procs = [subprocess.Popen(a, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for a in argvs]
+    outs, deadline = [], time.time() + DIST_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"[{tag}] {labels[r]} ran past {DIST_TIMEOUT}s") from None
+            for line in out.splitlines():
+                log(f"[{tag}:{labels[r]}] {line}")
+            if p.returncode != 0 or not out.strip():
+                raise AssertionError(f"[{tag}] {labels[r]} exited {p.returncode}:\n{err[-3000:]}")
+            outs.append((out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def _rank_env(world: int, one_card: bool) -> dict:
+    """The ranks' environment: with ``one_card`` every rank sees only the
+    first visible card (ranks share it: gloo); else each its own (NCCL)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    if one_card:
+        env["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    return env
+
+
+def _dist_cli(rec: dict, tmp: str, lp: str, world: int, backend: str, plain_ref: str) -> None:
+    """python -m otti_tpu_torch.cli --lp --custom LP --mesh W as W ranks
+    (transparent and zk side by side, a rendezvous each): every rank exits
+    0 and verifies, rank 0 alone writes --out, its meta names the backend,
+    and its transparent proof is hybrid.prove's in one process."""
+    from otti_tpu_torch.spartan import serial
+
+    tag = f"dist:cli:{backend}:W={world}"
+    argvs, outs, labels = [], {}, []
+    for zk in (False, True):
+        port, mode = _free_port(), "zk" if zk else "plain"
+        outs[mode] = [os.path.join(tmp, f"{tag.replace(':', '_')}_{mode}_{r}") for r in range(world)]
+        argvs += [[sys.executable, "-m", "otti_tpu_torch.cli", "--lp", "--custom", lp, "--mesh",
+                   str(world), "--coordinator", f"127.0.0.1:{port}", "--num-hosts", str(world),
+                   "--host-id", str(r), "--out", outs[mode][r]] + ([] if zk else ["--transparent"])
+                  for r in range(world)]
+        labels += [f"{mode}:rank{r}" for r in range(world)]
+    t0 = time.time()
+    res = _run_ranks(tag, argvs, _rank_env(world, backend == "gloo"), labels)
+    for (out, _), argv in zip(res, argvs):
+        if "Verification successful for gen117x225.mps" not in out:
+            raise AssertionError(f"[{tag}] a rank did not verify: {' '.join(argv[3:])}")
+    for mode, dirs in outs.items():
+        if any(os.path.exists(d) for d in dirs[1:]):
+            raise AssertionError(f"[{tag}] a rank other than 0 wrote --out")
+        meta = os.path.join(dirs[0], "LP", "gen117x225.mps.meta.json")
+        with open(meta) as f:
+            m = json.load(f)
+        if (m["mode"], m["dist_backend"], m["world_size"], m["card"], m["verified"]) != (
+                f"{mode}-mesh{world}", backend, world, "cuda:0", True):
+            raise AssertionError(f"[{tag}] {meta}: {m}")
+        log(f"[{tag}] rank 0's meta: mode {m['mode']}, backend {m['dist_backend']}, card "
+            f"{m['card']} ({m['device']}), prove {m['timings']['prove']:.4f}s (cold), verify "
+            f"{m['timings']['verify']:.4f}s")
+    with open(os.path.join(outs["plain"][0], "LP", "gen117x225.mps.proof.json")) as f:
+        if serial.dumps(serial.loads(f.read())) != plain_ref:
+            raise AssertionError(f"[{tag}] rank 0's transparent proof is not hybrid.prove's")
+    log(f"[{tag}] {world} ranks of the CLI, transparent and zk: all verified, rank 0 alone "
+        f"wrote --out, its transparent proof byte-equal to hybrid.prove in one process; "
+        f"{time.time() - t0:.1f}s")
+
+
+def _dist_workers(tmp: str, lp: str, world: int, backend: str) -> list:
+    """This script's --dist-worker as W ranks (_dist_worker); their records."""
+    tag = f"dist:{backend}:W={world}"
+    port, t0 = _free_port(), time.time()
+    outs = [os.path.join(tmp, f"worker_{backend}_{world}_{r}.json") for r in range(world)]
+    _run_ranks(tag, [[sys.executable, os.path.abspath(__file__), "--dist-worker",
+                      f"{r},{world},{port},{lp},{outs[r]}"] for r in range(world)],
+               _rank_env(world, backend == "gloo"))
+    res = []
+    for r, path in enumerate(outs):
+        with open(path) as f:
+            res.append(json.load(f))
+        if res[-1]["backend"] != backend:
+            raise AssertionError(f"[{tag}] rank {r} joined under {res[-1]['backend']}")
+    log(f"[{tag}] {world} worker ranks in {time.time() - t0:.1f}s")
+    return res
+
+
+def _dist_worker(spec: str) -> int:
+    """One rank of phase dist: the LP 117 x 225 in zero knowledge over W
+    ranks (one seed) byte-equal to hybrid.prove_zk on this rank, every
+    kernel of the path launched (the counts set to 0 just before, read just
+    after), a tampered proof rejected, no host sync under NCCL
+    (OTTI_SYNC_CHECK); sharded.py's four functions at the LP's 2^14 rows
+    against one shard; DIST_RUNS warm proves, their launches and a profiled
+    one.  Writes its record (JSON) to the path in ``spec``."""
+    import torch.distributed as dist
+
+    from otti_tpu_torch import metrics, native, runtime
+    from otti_tpu_torch.curve import edwards as E
+    from otti_tpu_torch.field import ops as F
+    from otti_tpu_torch.field.fields import BASE, SCALAR
+    from otti_tpu_torch.parallel import hybrid_sharded as HS
+    from otti_tpu_torch.parallel import sharded as SH
+    from otti_tpu_torch.msm import pippenger
+    from otti_tpu_torch.refimpl import numeric as ref
+    from otti_tpu_torch.spartan import hybrid, r1cs, serial, zknizk
+
+    rank, world, port, lp, out = spec.split(",")
+    rank, world = int(rank), int(world)
+    runtime.init_distributed(f"127.0.0.1:{port}", world, rank, "cuda")
+    group, card = dist.group.WORLD, torch.device("cuda", torch.cuda.current_device())
+    tag = f"dist:rank{rank}"
+    rec = {"rank": rank, "backend": dist.get_backend(), "card": str(card),
+           "card_name": torch.cuda.get_device_name(card)}
+    shape, v, i = _lower_lp(lp)
+    dev = shape.to_device(card)
+
+    def prove():
+        return HS.prove_zk(dev, v, i, k=world, seed=DIST_SEED, group=group)
+
+    _zero_launches()
+    proof = prove()  # the main path of this slice
+    torch.cuda.synchronize()
+    rec["launches_main"] = _read_launches(tag)
+    if serial.dumps(proof) != serial.dumps(hybrid.prove_zk(dev, v, i, seed=DIST_SEED)):
+        raise AssertionError(f"[{tag}] the {world}-rank zk proof is not hybrid.prove_zk's")
+    if not zknizk.verify(dev, i, proof):
+        raise AssertionError(f"[{tag}] the {world}-rank zk proof does not verify")
+    bad = dataclasses.replace(proof, bullet=dataclasses.replace(
+        proof.bullet, z1=(proof.bullet.z1 + 1) % zknizk.L))
+    if zknizk.verify(dev, i, bad):
+        raise AssertionError(f"[{tag}] a tampered bullet.z1 verified")
+    log(f"[{tag}] zk over {world} ranks ({rec['backend']}, {card}) byte-equal to hybrid.prove_zk; "
+        "verified; a tampered bullet.z1 rejected")
+    if rec["backend"] == "nccl":
+        os.environ["OTTI_SYNC_CHECK"] = "1"
+        try:
+            prove()
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["OTTI_SYNC_CHECK"]
+        log(f"[{tag}] no host sync between the two transfers under NCCL (OTTI_SYNC_CHECK)")
+
+    # sharded.py at the LP's padded rows, against one shard on this card
+    n = shape.num_cons_padded
+    mesh, one = SH.make_mesh(device=card, group=group), SH.Mesh((card,))
+    _, rand = _field_pool(29)
+    tabs = [rand(n) for _ in range(4)]
+    r = rand()
+    checks = {}
+
+    def same(name, a, b):
+        if not torch.equal(F.canon(SCALAR, a), F.canon(SCALAR, b)):
+            raise AssertionError(f"[{tag}] sharded.{name} differs from one shard")
+        checks[name] = list(a.shape)
+
+    sh_t = [SH.shard(mesh, t) for t in tabs]
+    same("round_cubic_sharded", torch.stack(SH.round_cubic_sharded(mesh, *sh_t)),
+         torch.stack(SH.round_cubic_sharded(one, *([t] for t in tabs))))
+    (b_sh,), (b_one,) = SH.bind_sharded(mesh, r, sh_t[0]), SH.bind_sharded(one, r, [tabs[0]])
+    same("bind_sharded", SH.unshard(mesh, b_sh), b_one[0])
+    rows, cols, vals = dev.mats[0]
+    pad = (-rows.shape[0]) % world  # value-0 entries at (0, 0)
+    rows, cols = (torch.cat([x, x.new_zeros(pad)]) for x in (rows, cols))
+    vals = torch.cat([vals, vals.new_zeros((pad, 22))])
+    z = r1cs.assemble_z(F.from_ints(SCALAR, list(v) + [0] * (dev.num_vars - len(v)), card),
+                        F.from_ints(SCALAR, list(i), card) if i else None, dev.num_vars)
+    mv = SH.matvec_sharded(mesh, SH.shard(mesh, rows), SH.shard(mesh, cols),
+                           SH.shard(mesh, vals), z, dev.num_cons)
+    same("matvec_sharded", mv, SH.matvec_sharded(one, [rows], [cols], [vals], z, dev.num_cons))
+    same("matvec_sharded vs R1CSDevice.matvecs", mv, dev.matvecs(z)[0])
+    rng = random.Random(31)
+    pts = [native.scalar_mul_host(ref.EdPoint.base(), rng.randrange(1, ref.L)) for _ in range(n)]
+    pts_d = E.pt(*(F.from_ints(BASE, [getattr(p, c) for p in pts], card) for c in "XYZT"))
+    sc = F.from_ints(SCALAR, [rng.randrange(ref.L) for _ in range(n)], card)
+    blocks = [dict(zip(E.COORDS, q)) for q in zip(*(SH.shard(mesh, pts_d[c]) for c in E.COORDS))]
+    got = E.to_ref(SH.msm_sharded(mesh, blocks, SH.shard(mesh, sc)))
+    if got != E.to_ref(pippenger.msm(pts_d, sc, window=4)):
+        raise AssertionError(f"[{tag}] sharded.msm_sharded differs from one shard")
+    checks["msm_sharded"] = [n]
+    rec["sharded"] = checks
+    log(f"[{tag}] sharded.py over {world} ranks == one shard at {n} rows: {json.dumps(checks)}")
+
+    walls, per, stages = _warm_runs(prove, DIST_RUNS)
+    rec.update(warm=_spread(walls), launches_warm=per, stages=stages, profile=_profiled(prove))
+    metrics.reset()
+    log(f"[{tag}] LP 117 x 225 zk over {world} ranks: warm {_show(rec['warm'])}; launches {per}; "
+        f"{rec['profile']['device_launches']} device launches, "
+        f"{rec['profile']['device_ms']:.1f} ms device time")
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _dist_msm(rec: dict) -> None:
+    """The var-base MSM (msm/pippenger.py::msm) on the card == the host
+    library's Pippenger at MSM_SIZES, with its time, kernel-1 launches and
+    the device memory it adds at its peak."""
+    from otti_tpu_torch import _build, native
+    from otti_tpu_torch.curve import edwards as E
+    from otti_tpu_torch.field import ops as F
+    from otti_tpu_torch.field.fields import BASE, SCALAR
+    from otti_tpu_torch.msm import pippenger
+    from otti_tpu_torch.refimpl import numeric as ref
+
+    rng = random.Random(37)
+    out = []
+    for n in MSM_SIZES:
+        pts = [native.scalar_mul_host(ref.EdPoint.base(), rng.randrange(1, ref.L))
+               for _ in range(n)]
+        ks = [rng.randrange(ref.L) for _ in range(n)]
+        pts_d = E.pt(*(F.from_ints(BASE, [getattr(p, c) for p in pts], "cuda") for c in "XYZT"))
+        sc = F.from_ints(SCALAR, ks, "cuda")
+        pippenger.msm(pts_d, sc)  # warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        got = pippenger.msm(pts_d, sc)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        k1 = _build.LAUNCHES["field_mul"]
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        t0 = time.perf_counter()
+        want = native.msm_host(pts, ks)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if E.to_ref(got) != want:
+            raise AssertionError(f"[dist:msm] n = {n}: the card's msm differs from msm_host")
+        row = {"n": n, "window": pippenger.pick_window(n), "ms": ms, "k1_launches": k1,
+               "peak_mib": peak, "host_ms": host_ms}
+        out.append(row)
+        log(f"[dist:msm] n = {n} (window {row['window']}): == native.msm_host; warm "
+            f"{ms:.1f} ms on the card ({host_ms:.1f} ms for the host library), {k1} K1 launches, "
+            f"{peak:.1f} MiB added at the peak")
+    rec["msm"] = out
+
+
+def phase_dist(rec: dict) -> None:
+    """Proving across processes (runtime.init_distributed, the CLI's
+    --coordinator/--num-hosts/--host-id): the var-base MSM on the card;
+    two ranks on the one card under gloo, by the CLI and by this script's
+    worker; the warm times against one process; with two cards or more
+    the same under NCCL, a card a rank, at W = 2 and 4."""
+    from otti_tpu_torch import _build
+    from otti_tpu_torch.parallel import hybrid_sharded as HS
+    from otti_tpu_torch.spartan import hybrid, serial
+
+    _build.library()  # built once here; the ranks load it
+    _dist_msm(rec)
+    with tempfile.TemporaryDirectory() as tmp:
+        lp = os.path.join(tmp, "gen117x225.mps")
+        write_lp_mps(lp, 117, 225, seed=1)
+        shape, v, i = _lower_lp(lp)
+        dev = shape.to_device("cuda")
+        plain_ref = serial.dumps(hybrid.prove(dev, v, i))
+        _dist_cli(rec, tmp, lp, 2, "gloo", plain_ref)
+        ranks = _dist_workers(tmp, lp, 2, "gloo")
+        rec["launches_dist"] = ranks[0]["launches_main"]
+        single = {}
+        for k in (1, 2):
+            fn = ((lambda: hybrid.prove_zk(dev, v, i, seed=DIST_SEED)) if k == 1 else
+                  (lambda: HS.prove_zk(dev, v, i, k=2, seed=DIST_SEED,
+                                       devices=[torch.device("cuda", 0)] * 2)))
+            walls, per, _ = _warm_runs(fn, DIST_RUNS)
+            single[k] = {"s": _spread(walls), "launches": per}
+        rec["dist"] = {"gloo_W2": ranks, "one_process": single}
+        log(f"[dist] LP 117 x 225 zk, warm medians of {DIST_RUNS}: 2 ranks on one card (gloo) "
+            + ", ".join(f"rank {r['rank']} {r['warm']['median']:.4f}s" for r in ranks)
+            + f"; one process --mesh k=2 {single[2]['s']['median']:.4f}s, k=1 "
+            f"{single[1]['s']['median']:.4f}s; kernel launches a prove "
+            + "; ".join(f"rank {r['rank']} {r['launches_warm']}" for r in ranks)
+            + f"; one process k=2 {single[2]['launches']}, k=1 {single[1]['launches']}; device "
+            "launches " + ", ".join(f"rank {r['rank']} {r['profile']['device_launches']}"
+                                    for r in ranks))
+        cards = torch.cuda.device_count()
+        if cards < 2:
+            log("[dist] one card visible: NCCL (a card a rank) not run")
+            return
+        for world in (2, 4) if cards >= 4 else (2,):
+            _dist_cli(rec, tmp, lp, world, "nccl", plain_ref)
+            ranks = _dist_workers(tmp, lp, world, "nccl")
+            rec["dist"][f"nccl_W{world}"] = ranks
+            log(f"[dist] LP 117 x 225 zk over {world} cards (NCCL), warm medians of {DIST_RUNS}: "
+                + ", ".join(f"rank {r['rank']} {r['warm']['median']:.4f}s" for r in ranks)
+                + "; kernel launches a prove " + "; ".join(
+                    f"rank {r['rank']} {r['launches_warm']}" for r in ranks)
+                + "; device launches " + ", ".join(
+                    f"rank {r['rank']} {r['profile']['device_launches']}" for r in ranks))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--tree", help="import otti_tpu_torch from this checkout instead (to time "
                                    "another commit's package in the same call)")
+    ap.add_argument("--dist-worker", metavar="RANK,WORLD,PORT,LP,OUT",
+                    help="run one rank of phase dist (the phase starts these itself)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.tree) if args.tree else REPO)
+    if args.dist_worker:
+        return _dist_worker(args.dist_worker)
     rec: dict = {}
     fns = {"device": phase_device, "build": phase_build, "kernel1": phase_kernel1,
            "kernel2": phase_kernel2, "main": phase_main, "cpu_gpu": phase_cpu_gpu,
            "scale": phase_scale, "lp_sdp": phase_lp_sdp, "snark": phase_snark,
            "custom": phase_custom, "snark_warm": phase_snark_warm, "device_fs": phase_device_fs, "profile": phase_profile, "batch": phase_batch,
-           "mesh": phase_mesh}
+           "mesh": phase_mesh, "dist": phase_dist}
     for name in phases:
         t0 = time.time()
         fns[name](rec)
@@ -2591,6 +2937,8 @@ def main(argv=None) -> int:
                                 rec.get("launches_device_fs", {}).get(cname),
                             "launches_batch": rec.get("launches_batch", {}).get(cname),
                             "launches_mesh": rec.get("launches_mesh", {}).get(cname),
+                            # rank 0 of two on the one card, the dist phase's main path
+                            "launches_dist": rec.get("launches_dist", {}).get(cname),
                             **{k: v for k, v in rec[key].items()
                                if k in ("base", "quad", "fs_ms", "fs_wrapper_ms", "fs_plain_ms",
                                         "floor_ms", "sizes", "shapes")},

@@ -6,7 +6,7 @@
     python -m otti_tpu_torch.cli --verify-zkif CIRCUIT [INPUTS] WITNESS
         common: [--transparent | --snark] [--wire otti|spartan] [--emit-zkif]
                 [--batch] [--mesh K|auto] [--resume] [--no-prove] [--device cuda|cpu]
-                [--out DIR]
+                [--cpu] [--out DIR] [--coordinator HOST:PORT --num-hosts W --host-id R]
 
 Per instance: parse or fetch -> solver oracle -> lower the certificate to
 R1CS on the host -> move it to the device -> prove -> verify, with the JAX
@@ -48,9 +48,19 @@ visible cards, a power of two, small enough for the instance) and meta
 ``mode`` gains ``-mesh{k}``.  As in the JAX CLI, ``--wire spartan``,
 ``--snark`` and ``--batch`` take their own provers whatever the mesh, and
 ``OTTI_MESH_MONOLITHIC`` (the JAX package's single-program form of the
-same proofs) selects the same provers.  Not ported yet, and refused with an
-error naming the ROADMAP item rather than replaced by something else:
-``--coordinator``, ``--num-hosts`` and ``--host-id`` (multi-host runs).
+same proofs) selects the same provers.
+
+``--coordinator HOST:PORT --num-hosts W --host-id R`` runs the command as
+rank R of W processes, one a card, joined by ``torch.distributed``
+(runtime.init_distributed; without the flags, torch's launcher environment
+does the same): run it once for every R.  Each rank proves on its own card.
+With ``--mesh W`` (or ``auto``: one shard a rank, the only mesh a group
+takes) each prove is sharded over the ranks (parallel/hybrid_sharded.py
+with the process group) and every rank ends with the same proof; without
+``--mesh`` every rank proves each instance alone, as every JAX host does
+with a mesh of one.  Every rank verifies; rank 0 alone writes ``--out``,
+whose meta records the rank's card, the world size and the backend
+(``dist_backend``).  ``--cpu`` is ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -62,11 +72,6 @@ import os
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-
-REFUSED = {
-    "coordinator": "--coordinator, --num-hosts and --host-id (multi-host proving) are not "
-                   "ported yet (ROADMAP.md item 1.17)",
-}
 
 DEFAULT_DATASETS = os.environ.get(
     "OTTI_DATASETS",
@@ -169,11 +174,25 @@ def _choose_fused(shape) -> bool:
     return max(shape.num_vars_padded, shape.num_cons_padded) <= max_vars
 
 
+def _group():
+    """The process group this process is a rank of (runtime.init_distributed),
+    or None."""
+    import torch.distributed as dist
+
+    return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+
+
 def _visible_devices(device) -> list:
     """The devices a mesh on ``device``'s kind may use: every card
-    (cuda:0, cuda:1, ...) for CUDA, the one CPU otherwise."""
+    (cuda:0, cuda:1, ...) for CUDA, the one CPU otherwise; in a process
+    group one a rank, each rank's own (as jax.devices() spans every host),
+    which this process names by its own."""
     import torch
+    import torch.distributed as dist
 
+    group = _group()
+    if group is not None:
+        return [torch.device(device)] * dist.get_world_size(group)
     if torch.device(device).type == "cuda":
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return [torch.device(device)]
@@ -217,7 +236,7 @@ def _provers(shape, zk: bool, wire: str, mesh_k: int = 1, device="cuda") -> tupl
     """(prove_fn, verify_fn, classic) for one lowered instance, as the JAX
     CLI's dispatch (otti_tpu/cli.py, the branches after _choose_fused)
     picks them; ``mesh_k`` > 1 shards the prover over the first mesh_k
-    visible devices."""
+    visible devices, or over the ranks of the process group."""
     from .spartan import fused, hybrid, nizk, zkfused, zknizk
 
     use_fused = _choose_fused(shape)
@@ -233,6 +252,11 @@ def _provers(shape, zk: bool, wire: str, mesh_k: int = 1, device="cuda") -> tupl
         # to trade compile time, which eager torch does not spend
         from .parallel import hybrid_sharded
 
+        group = _group()
+        if group is not None:  # a shard a rank, each on the rank's card
+            sharded = hybrid_sharded.prove_zk if zk else hybrid_sharded.prove
+            return (lambda d, v, i: sharded(d, v, i, k=mesh_k, group=group),
+                    zknizk.verify if zk else nizk.verify, classic)
         devices = _visible_devices(device)[:mesh_k]
         if zk:
             return (lambda d, v, i: hybrid_sharded.prove_zk(d, v, i, k=mesh_k, devices=devices),
@@ -247,11 +271,6 @@ def _provers(shape, zk: bool, wire: str, mesh_k: int = 1, device="cuda") -> tupl
     return prove_fn, nizk.verify, classic
 
 
-def _refuse(coordinator) -> None:
-    if coordinator:
-        raise NotImplementedError(REFUSED["coordinator"])
-
-
 def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None,
                      zk=True, snark=False, emit_zkif=False, wire="otti", device="cuda",
                      extra_meta=None, mesh=None) -> bool:
@@ -260,11 +279,13 @@ def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None
     ``_provers`` picks (over ``_mesh_size(mesh)`` devices), or in SNARK
     mode with ``snark=True`` (spartan/snark.py).  The wire profile touches only the zk prover.  With
     ``emit_zkif`` the instance is also written as a zkinterface triple
-    (<name>.zkif, .inp.zkif, .wit.zkif) that ``--verify-zkif`` reads back."""
+    (<name>.zkif, .inp.zkif, .wit.zkif) that ``--verify-zkif`` reads back.
+    In a process group only rank 0 writes ``out_dir``."""
     from . import metrics
 
     from .spartan import serial, snark as snark_mod, spark
 
+    out_dir, dist_meta = _rank_out(out_dir, device)
     if emit_zkif and out_dir:
         from .io import zkif as zkif_mod
 
@@ -287,6 +308,12 @@ def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None
             return snark_mod.verify(d, comm, i, p)
     else:
         mesh_k = _mesh_size(mesh, shape, device)
+        ranks = len(_visible_devices(device))
+        if 1 < mesh_k < ranks and _group() is not None:
+            # a group's mesh is every rank or none: a rank outside it has no part
+            _stage(f"  --mesh: {shape.num_cons_padded} padded cons take {mesh_k} of the "
+                   f"{ranks} ranks; each rank proves {name} alone")
+            mesh_k = 1
         prove_fn, verify_fn, classic = _provers(shape, zk, wire, mesh_k, device)
         mode = (("zk" if zk else "plain") + (f"-mesh{mesh_k}" if mesh_k > 1 else "")
                 + (f"-wire-{wire}" if wire != "otti" else "") + ("-classic" if classic else ""))
@@ -321,6 +348,7 @@ def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None
                     "mode": mode,
                     "capture": capture,
                     "device": _device_name(device),
+                    **dist_meta,
                     **(extra_meta or {}),
                     "num_cons": shape.num_cons,
                     "num_vars": shape.num_vars,
@@ -344,11 +372,13 @@ def _batched_prove_and_verify(lowered, out_dir, zk, device="cuda") -> bool:
     largest dimensions and proved as one stacked device chain
     (spartan/batched.py), and each proof is verified on its own and saved
     with the usual artifacts; ``timings.prove`` is the batch's time over its
-    size."""
+    size.  In a process group every rank proves each batch alone and only
+    rank 0 writes ``out_dir``."""
     from . import metrics
 
     from .spartan import batched, nizk, serial, zknizk
 
+    out_dir, dist_meta = _rank_out(out_dir, device)
     groups: dict = {}
     for item in lowered:
         shape = item[1]
@@ -392,12 +422,31 @@ def _batched_prove_and_verify(lowered, out_dir, zk, device="cuda") -> bool:
                 serial.save(proof, os.path.join(out_dir, name + ".proof.json"))
                 with open(os.path.join(out_dir, name + ".meta.json"), "w") as f:
                     json.dump({"name": name, "mode": mode, "capture": capture,
-                               "device": _device_name(device), "batch": len(items),
+                               "device": _device_name(device), **dist_meta,
+                               "batch": len(items),
                                "num_cons": sh.num_cons, "num_vars": sh.num_vars,
                                "num_inputs": sh.num_inputs, "verified": bool(ok),
                                "proof_bytes": proof.size_bytes(), "timings": timer.t,
                                "prover_metrics": prove_metrics}, f, indent=2)
     return ok_all
+
+
+def _rank_out(out_dir, device) -> tuple:
+    """(the directory this process writes, None on a rank other than 0;
+    the meta of its process group: rank, world size, backend and the
+    rank's card), or (out_dir, {}) without a group."""
+    import torch
+    import torch.distributed as dist
+
+    group = _group()
+    if group is None:
+        return out_dir, {}
+    rank, card = dist.get_rank(group), torch.device(device)
+    if card.type == "cuda" and card.index is None:
+        card = torch.device("cuda", torch.cuda.current_device())
+    return (out_dir if rank == 0 else None,
+            {"rank": rank, "world_size": dist.get_world_size(group),
+             "dist_backend": dist.get_backend(group), "card": str(card)})
 
 
 def _device_name(device) -> str:
@@ -434,8 +483,7 @@ def lower_sgd(dataset: str, params: dict, prob_check: bool = False, timer=None):
 
 
 def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delta=None,
-           emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda",
-           coordinator=None) -> bool:
+           emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda") -> bool:
     """Prove and verify the optimality certificate of every MPS file:
     parse -> LP oracle -> lower -> prove; artifacts go to ``<home_out>/LP``.
     One failing instance does not stop the others.  With ``batch`` every
@@ -447,7 +495,6 @@ def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delt
 
     from .codegen import lp_cert
 
-    _refuse(coordinator)
     ok_all = True
     out_dir = os.path.join(home_out, "LP")
     lowered = []  # with batch: proved together once all are lowered
@@ -490,8 +537,7 @@ def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delt
 
 
 def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, epsilon=None,
-            emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda",
-            coordinator=None) -> bool:
+            emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda") -> bool:
     """Prove and verify the optimality certificate of every SDPA sparse
     (``.dat-s``) file: parse -> SDP oracle -> Cholesky witnesses -> lower ->
     prove; artifacts go to ``<home_out>/SDP``.  A file of another kind is
@@ -501,7 +547,6 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
 
     from .codegen import sdp_cert
 
-    _refuse(coordinator)
     ok_all = True
     out_dir = os.path.join(home_out, "SDP")
     lowered = []  # with batch: proved together once all are lowered
@@ -551,14 +596,13 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
 
 def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
             resume=False, batch=False, snark=False, emit_zkif=False, mesh=None, wire="otti",
-            device="cuda", coordinator=None) -> bool:
+            device="cuda") -> bool:
     """Prove and verify every instance of a PMLB SGD config, in zero
     knowledge unless ``zk=False`` or ``snark=True``; artifacts go to
     ``<home_out>/SGD``.  With ``resume`` an instance whose meta says it
     verified is skipped.  Returns True when every instance verified."""
     from .io import pmlb_local
 
-    _refuse(coordinator)
     cfg = pmlb_local.load_config(config_path)
     out_dir = os.path.join(home_out, "SGD")
     ok_all = True
@@ -621,6 +665,7 @@ def main(argv=None) -> int:
                              "SGD/*.json (only the SGD configs are in this repository)")
     parser.add_argument("--out", type=str, default="out")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--cpu", action="store_true", help="run on the CPU (--device cpu)")
     parser.add_argument("--no-prove", action="store_true", help="stop after R1CS lowering")
     parser.add_argument("--resume", action="store_true",
                         help="skip instances whose meta.json says they verified")
@@ -654,11 +699,12 @@ def main(argv=None) -> int:
                              "over, or 'auto' for every visible card; the proofs are the "
                              "single-device prover's bytes")
     parser.add_argument("--coordinator", type=str, default=None,
-                        help="multi-host run: the coordinator's host:port (not ported yet)")
+                        help="multi-process run: rank 0's host:port (torch.distributed; run "
+                             "the same command once for every --host-id)")
     parser.add_argument("--num-hosts", type=int, default=None,
-                        help="multi-host run (not ported yet)")
+                        help="multi-process run: the number of ranks, one process a card")
     parser.add_argument("--host-id", type=int, default=None,
-                        help="multi-host run (not ported yet)")
+                        help="multi-process run: this process's rank, in [0, --num-hosts)")
     args = parser.parse_args(argv)
     if args.zk and args.snark:
         parser.error("--zk and --snark are mutually exclusive")
@@ -666,11 +712,49 @@ def main(argv=None) -> int:
         parser.error("--zk and --transparent are mutually exclusive")
     if args.batch and args.snark:
         parser.error("--batch and --snark are mutually exclusive")
-    if args.coordinator or args.num_hosts is not None or args.host_id is not None:
-        parser.error(REFUSED["coordinator"])
+    hosts = (args.coordinator, args.num_hosts, args.host_id)
+    if any(h is not None for h in hosts):
+        if any(h is None for h in hosts):
+            parser.error("--coordinator, --num-hosts and --host-id go together: run the command "
+                         "once for every rank, --host-id 0 to --num-hosts - 1")
+        if not 0 <= args.host_id < args.num_hosts:
+            parser.error(f"--host-id {args.host_id} is not a rank of --num-hosts "
+                         f"{args.num_hosts}")
+    if args.cpu:
+        args.device = "cpu"
     # zero knowledge is the default, as in otti_tpu; --transparent and --snark opt out
     args.zk = not (args.transparent or args.snark)
     prove = not args.no_prove
+
+    def check_mesh(world: int) -> None:
+        if args.mesh not in (None, "auto", str(world)):
+            parser.error(f"--mesh {args.mesh} in a process group of {world} ranks: a group's "
+                         f"mesh is one shard a rank, --mesh {world} (or auto), or none")
+
+    if args.num_hosts is not None:
+        check_mesh(args.num_hosts)  # before the rendezvous, which would wait for the others
+    from . import runtime
+
+    if runtime.init_distributed(args.coordinator, args.num_hosts, args.host_id, args.device):
+        import torch
+        import torch.distributed as dist
+
+        check_mesh(dist.get_world_size())
+        if torch.device(args.device).type == "cuda":
+            args.device = f"cuda:{torch.cuda.current_device()}"  # the rank's card
+        _stage(f"Rank {dist.get_rank()} of {dist.get_world_size()} ({dist.get_backend()}) on "
+               f"{args.device}")
+    try:
+        return _main(parser, args, prove)
+    finally:
+        if _group() is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(parser, args, prove: bool) -> int:
+    """The run that ``main`` parsed and joined."""
     common = dict(zk=args.zk, resume=args.resume, snark=args.snark, emit_zkif=args.emit_zkif,
                   batch=args.batch, mesh=args.mesh, wire=args.wire, device=args.device)
 
@@ -693,8 +777,7 @@ def main(argv=None) -> int:
         _stage(f"Importing {circuit}")
         shape, vars_, inputs = zkif_mod.import_r1cs(circuit, wit, inp)
         ok = prove_and_verify(shape, vars_, inputs, os.path.basename(circuit), Timer(),
-                              args.out, args.zk, args.snark, wire=args.wire,
-                              device=args.device)
+                              args.out, args.zk, args.snark, device=args.device)
         return 0 if ok else 1
     if args.lp or args.sdp:
         kind, sub = ("LP", "LP/MPS-") if args.lp else ("SDP", "SDP/")

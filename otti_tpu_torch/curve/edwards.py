@@ -36,6 +36,17 @@ def identity(shape=(), device="cpu") -> dict:
     return pt(zero, one, one.clone(), zero.clone())
 
 
+def base_point(shape=(), device="cpu") -> dict:
+    return from_affine_ints(ref.BASE_X, ref.BASE_Y, shape, device)
+
+
+def from_affine_ints(x: int, y: int, shape=(), device="cpu") -> dict:
+    """The point (x, y) (canonical ints) in extended coordinates, broadcast
+    to ``shape``."""
+    return pt(*(F.const(BASE, v, shape, device).contiguous()
+                for v in (x, y, 1, x * y % ref.P)))
+
+
 _P_LIMBS: dict = {}
 
 

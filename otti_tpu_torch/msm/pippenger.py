@@ -13,11 +13,25 @@ host, and the 256 multiples of every base come from 8 batched device levels
 integer arithmetic instead (``build_comb_table_host``, the same bits).
 It is cached under ``otti_tpu_torch/build/``, keyed like the JAX cache, and
 a table of fewer generators of one label is a prefix of a wider one.
+
+The variable-base MSM (``msm``, port of the JAX module's windowed
+Pippenger) keeps the JAX design, every step a batched torch op over
+``edwards.add``/``double`` (so kernel 1 on the card): per window the points
+are sorted by digit, the bucket sums come from a two-level segmented
+Hillis-Steele scan (in chunks of SCAN_CHUNK, then over the chunks' tails),
+the buckets are weighted by suffix sums, and the windows are combined MSB
+first by doubling.  Windows run ``win_group`` at a time on a leading axis,
+as the JAX module vmaps them.  The level-2 scan runs ceil(log2 m) steps
+over m chunks; the JAX module's ``max(1, m.bit_length() - 1)`` is one step
+short when m is no power of two (n = 96, 112, 176), where its sums lose a
+carry.  ``msm_bitserial`` and ``msm_shared_bases`` are the JAX module's
+bit-serial forms.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 import os
 
 import numpy as np
@@ -33,6 +47,181 @@ from ..field import ops as F
 
 SCALAR_BITS = 253
 FIXED_BASE_WINDOW = 8
+SCAN_CHUNK = 16
+
+
+# ---------------------------------------------------------------------------
+# Variable-base MSM (otti_tpu/msm/pippenger.py::msm and its steps)
+# ---------------------------------------------------------------------------
+
+def _digits(scalars: torch.Tensor, window: int) -> torch.Tensor:
+    """[N, 22] limb scalars -> [n_windows, N] int64 window digits of the
+    canonical values, row 0 the MSB window."""
+    n_windows = math.ceil(SCALAR_BITS / window)
+    bits = E.scalars_to_bits(scalars, n_windows * window)
+    shaped = bits.reshape(bits.shape[:-1] + (n_windows, window))
+    digits = (shaped * (1 << torch.arange(window, device=bits.device))).sum(-1)
+    return digits.T.flip(0)
+
+
+def _shift(p: dict, d: int, back: bool = False) -> dict:
+    """Points [..., n] moved d places along their last axis, to higher
+    places (lower with ``back``), the identity in the places left empty:
+    the masked roll of the JAX scans."""
+    n = p["x"].shape[-2]
+    d = min(d, n)
+    fill = E.identity(tuple(p["x"].shape[:-2]) + (d,), p["x"].device)
+    return {c: torch.cat([a[..., d:, :], fill[c]] if back else [fill[c], a[..., : n - d, :]],
+                         dim=-2) for c, a in p.items()}
+
+
+def _run_starts(digits_sorted: torch.Tensor) -> torch.Tensor:
+    """1 where a run of equal digits starts (the first place is one)."""
+    starts = torch.ones_like(digits_sorted)
+    starts[..., 1:] = (digits_sorted[..., 1:] != digits_sorted[..., :-1]).long()
+    return starts
+
+
+def _hs_step(flags: torch.Tensor, vals: dict, d: int) -> tuple:
+    """One Hillis-Steele step of a segmented inclusive scan along the last
+    axis: a place whose run has not started within its last d places adds
+    the value d places back (out of range counts as a run start)."""
+    n = flags.shape[-1]
+    pred_f = torch.cat([torch.ones_like(flags[..., : min(d, n)]), flags[..., : max(n - d, 0)]],
+                       dim=-1)
+    summed = E.add(vals, _shift(vals, d))
+    return flags | pred_f, E.select(flags == 0, summed, vals)
+
+
+def _scatter_run_ends(digits_sorted: torch.Tensor, vals: dict, window: int) -> dict:
+    """Each run's inclusive total (at its run's last place) into the
+    [..., 2^w] bucket array, the identity in empty buckets."""
+    nb = 1 << window
+    ends = torch.ones_like(digits_sorted, dtype=torch.bool)
+    ends[..., :-1] = digits_sorted[..., 1:] != digits_sorted[..., :-1]
+    idx = torch.where(ends, digits_sorted, nb)[..., None].expand(vals["x"].shape)
+    lead = tuple(digits_sorted.shape[:-1])
+    ident = E.identity(lead + (nb + 1,), digits_sorted.device)
+    return {c: ident[c].scatter(-2, idx, vals[c])[..., :nb, :] for c in E.COORDS}
+
+
+def _segment_scan_1level(points: dict, digits_sorted: torch.Tensor, window: int) -> dict:
+    """Single-level segmented scan over [..., n] sorted points: ceil(log2 n)
+    full-width masked adds; for n that the two-level scan does not take."""
+    n = digits_sorted.shape[-1]
+    flags, vals = _run_starts(digits_sorted), points
+    for j in range(max(1, (n - 1).bit_length())):
+        flags, vals = _hs_step(flags, vals, 1 << j)
+    return _scatter_run_ends(digits_sorted, vals, window)
+
+
+def _segment_scan_bucket_sums(points: dict, digits_sorted: torch.Tensor, window: int) -> dict:
+    """Points [..., n] sorted by digit -> [..., 2^w] bucket sums (identity
+    for empty buckets) by the JAX module's two-level scan: the array cut
+    into m chunks of C = SCAN_CHUNK, a segmented scan inside each chunk
+    (log2 C steps), one over the m chunk tails (ceil(log2 m) steps: the
+    carries across chunks), and one more masked add that applies them.
+    The carry mask and the tail flags come from the true run starts
+    (``or_flags``), not from the level-1 guard flags."""
+    n = digits_sorted.shape[-1]
+    C = SCAN_CHUNK
+    if n % C or n // C < 2:
+        return _segment_scan_1level(points, digits_sorted, window)
+    m = n // C
+    lead = tuple(digits_sorted.shape[:-1])
+    s2 = _run_starts(digits_sorted).reshape(lead + (m, C))
+    or_flags = (torch.cumsum(s2, dim=-1) > 0).long()
+    vals = E.tree_map(lambda a: a.reshape(lead + (m, C, a.shape[-1])), points)
+    flags = s2
+    for j in range(C.bit_length() - 1):
+        flags, vals = _hs_step(flags, vals, 1 << j)
+    f2, v2 = or_flags[..., -1], E.tree_map(lambda a: a[..., -1, :], vals)
+    for j in range((m - 1).bit_length()):
+        f2, v2 = _hs_step(f2, v2, 1 << j)
+    carry_in = E.tree_map(lambda a: a[..., None, :].expand(lead + (m, C, a.shape[-1])),
+                          _shift(v2, 1))
+    vals = E.select(or_flags == 0, E.add(vals, carry_in), vals)
+    flat = E.tree_map(lambda a: a.reshape(lead + (n, a.shape[-1])), vals)
+    return _scatter_run_ends(digits_sorted, flat, window)
+
+
+def _aggregate_buckets(buckets: dict, window: int) -> dict:
+    """sum_b b S_b over [..., 2^w] buckets: the suffix sums T_j = sum_{b >= j}
+    S_b (w masked full-width adds), then the tree sum of T_1 .. T_{2^w - 1}."""
+    T = buckets
+    for j in range(window):
+        T = E.add(T, _shift(T, 1 << j, back=True))
+    return E.sum_points(E.tree_map(lambda a: a[..., 1:, :], T), axis=-2)
+
+
+def pick_window(n: int) -> int:
+    if n <= 16:
+        return 2
+    return max(2, min(12, int(math.log2(n)) - 3))
+
+
+def msm(points: dict, scalars: torch.Tensor, window: int | None = None,
+        win_group: int | None = None) -> dict:
+    """sum_i scalars[i] * points[i]: points [N] (extended, canonical
+    coordinates), scalars [N, 22] limbs -> one point.
+
+    The windows go ``win_group`` at a time (a leading axis of every step,
+    at most 2^17 point rows by default, as in the JAX module), padded with
+    zero windows at the MSB end (digit 0: weight 0, an identity window)."""
+    n = scalars.shape[0]
+    w = window or pick_window(n)
+    digits = _digits(scalars, w)
+    n_win = digits.shape[0]
+    if win_group is None:
+        win_group = max(1, min(8, (1 << 17) // max(n, 1)))
+    win_group = min(win_group, n_win)
+    pad = (-n_win) % win_group
+    if pad:
+        digits = torch.cat([torch.zeros((pad, n), dtype=digits.dtype, device=digits.device),
+                            digits])
+    packed = E.to_affine_pack(points)  # 64 B a point for every window's permutation
+    bks = []
+    for dg in digits.split(win_group):
+        dig_sorted, order = torch.sort(dg, dim=1, stable=True)
+        bks.append(_segment_scan_bucket_sums(E.from_affine_pack(packed[order]), dig_sorted, w))
+    wins = _aggregate_buckets(E.tree_map(lambda *xs: torch.cat(xs), *bks), w)
+    total = E.identity((), scalars.device)
+    for i in range(digits.shape[0]):  # Horner, MSB window first
+        for _ in range(w):
+            total = E.double(total)
+        total = E.add(total, E.tree_map(lambda a: a[i], wins))
+    return total
+
+
+def msm_bitserial(points: dict, scalars: torch.Tensor) -> dict:
+    """MSB-first bit-serial MSM: 253 doublings and masked tree sums."""
+    bits = E.scalars_to_bits(scalars, SCALAR_BITS)
+    ident = E.identity((scalars.shape[0],), scalars.device)
+    acc = E.identity((), scalars.device)
+    for t in range(SCALAR_BITS - 1, -1, -1):
+        sel = E.select(bits[:, t] == 1, points, ident)
+        acc = E.add(E.double(acc), E.sum_points(sel))
+    return acc
+
+
+def msm_shared_bases(points: dict, scalar_matrix: torch.Tensor) -> dict:
+    """One MSM a row over shared bases: points [cols], scalars [rows, cols,
+    22] -> [rows] points, bit-serial as ``msm_bitserial``."""
+    rows, cols = scalar_matrix.shape[0], scalar_matrix.shape[1]
+    bits = E.scalars_to_bits(scalar_matrix, SCALAR_BITS)
+    g_b = E.tree_map(lambda a: a[None].expand((rows,) + a.shape), points)
+    ident = E.identity((rows, cols), scalar_matrix.device)
+    acc = E.identity((rows,), scalar_matrix.device)
+    for t in range(SCALAR_BITS - 1, -1, -1):
+        sel = E.select(bits[:, :, t] == 1, g_b, ident)
+        acc = E.add(E.double(acc), E.sum_points(sel, axis=1))
+    return acc
+
+
+def msm_jit(n: int, window: int | None = None):
+    """The JAX module's cached jitted MSM for size n: here a plain callable
+    (eager torch compiles nothing)."""
+    return lambda pts, sc: msm(pts, sc, window)
 
 
 N_WIN = -(-SCALAR_BITS // FIXED_BASE_WINDOW)  # 32 windows

@@ -19,6 +19,22 @@ reads it from device memory; the groups' evaluations and survivors come
 back to the controller by device-to-device copies.  Every kernel launch runs
 on its tensors' card (csrc/device.cuh), so groups may sit on distinct cards.
 
+Across processes (``group``: a ``torch.distributed`` process group of W
+ranks, one process a card, as runtime.init_distributed makes it), rank r
+holds the shards [r k/W, (r+1) k/W) on its own card and is its own
+controller: every rank runs what the JAX package replicates on every chip
+(the transcript, the encodings, the sigma arithmetic, the last log2(k)
+rounds, the opening), so every rank ends with the proof.  What crosses
+ranks goes through one exchange, ``all_gather`` in rank order, which is
+shard order: a round's canonical partial evaluations (``_psum_canon``, then
+the same pairwise canon tree, so every rank holds the same bits), the
+survivors (``_Shards.gather``), the witness rows' encodings (``_commit``)
+and the partial A~, B~, C~ (``_eval_at``).  In zero knowledge without a
+given seed, rank 0 draws the blind seed and broadcasts it
+(``_Shards.blind_seed``) before the blinds are drawn, or the replicated
+controllers would draw different blinds; the JAX package has no such
+broadcast.
+
 Cyclic layout (as in the JAX package): logical index i = j*k + s lives on
 shard s at local slot j, so the pair (i, i + n/2) that a round folds sits on
 one shard, and the bound tables keep the layout.  The tables are made in
@@ -50,6 +66,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import metrics
 from ..curve import ristretto
@@ -75,31 +92,34 @@ _PART_CACHE: dict = {}
 
 
 # after otti_tpu/parallel/fused_prover.py::partition_r1cs
-def partition_r1cs(dev: r1cs.R1CSDevice, k: int, device=None) -> tuple:
+def partition_r1cs(dev: r1cs.R1CSDevice, k: int, device=None, shards=None) -> tuple:
     """Two COO copies of each matrix: grouped by row mod k (the phase-1
     products) and by column mod k (the phase-2 table), each shard's segment
-    padded to a common length m with value-0 entries.  Returns (by_row,
-    by_col), each three (rows, cols, vals) with [k*m] int64 indices and
-    [k*m, 22] int32 values on ``device`` (the instance's by default): shard
-    s holds [s*m, (s+1)*m), by_row with local rows (row div k), by_col with
-    local columns (column div k).  Cached for the last few instances."""
+    padded to a common length m (the longest of all k) with value-0
+    entries.  Returns (by_row, by_col), each three (rows, cols, vals) with
+    [len(shards)*m] int64 indices and [len(shards)*m, 22] int32 values on
+    ``device`` (the instance's by default): the i-th of ``shards`` (all k
+    by default) holds [i*m, (i+1)*m), by_row with local rows (row div k),
+    by_col with local columns (column div k).  A rank of a process group
+    builds only its own shards.  Cached for the last few instances."""
     device = dev.device if device is None else torch.device(device)
-    key = (dev.digest, dev.num_z, k, str(device))
+    shards = list(range(k)) if shards is None else list(shards)
+    key = (dev.digest, dev.num_z, k, str(device), tuple(shards))
     if key in _PART_CACHE:
         return _PART_CACHE[key]
 
     def group(rows, cols, vals, by_col: bool):
         keyv = cols if by_col else rows
-        idx = [np.nonzero(keyv % k == s)[0] for s in range(k)]
-        m = max(max(len(i) for i in idx), 1)
-        R = np.zeros((k, m), np.int64)
-        C = np.zeros((k, m), np.int64)
-        V = np.zeros((k, m, N_LIMBS), np.int32)
-        for s, i in enumerate(idx):
-            R[s, : len(i)] = rows[i] if by_col else rows[i] // k
-            C[s, : len(i)] = cols[i] // k if by_col else cols[i]
-            V[s, : len(i)] = vals[i]
-        return tuple(torch.from_numpy(a.reshape((k * m,) + a.shape[2:])).to(device)
+        m = max(int(np.bincount(keyv % k, minlength=k).max()), 1)
+        R = np.zeros((len(shards), m), np.int64)
+        C = np.zeros((len(shards), m), np.int64)
+        V = np.zeros((len(shards), m, N_LIMBS), np.int32)
+        for j, s in enumerate(shards):
+            i = np.nonzero(keyv % k == s)[0]
+            R[j, : len(i)] = rows[i] if by_col else rows[i] // k
+            C[j, : len(i)] = cols[i] // k if by_col else cols[i]
+            V[j, : len(i)] = vals[i]
+        return tuple(torch.from_numpy(a.reshape((len(shards) * m,) + a.shape[2:])).to(device)
                      for a in (R, C, V))
 
     mats = [tuple(x.cpu().numpy() for x in mat) for mat in dev.mats]
@@ -137,16 +157,32 @@ def _local_evals_raw(sh: "_Shards", tables: list, degree: int, r, prev_half):
 
 
 # after otti_tpu/parallel/fused_prover.py::_psum_canon
-def _psum_canon(parts: list, ctrl) -> torch.Tensor:
+def _psum_canon(parts: list, sh: "_Shards") -> torch.Tensor:
     """Canonical field sum over the k shards (the leading axis of the
-    groups' canonical parts; k a power of two), on the controller: log2(k)
-    levels of pairwise limb sums (< 2m), each made canonical by one batched
-    canon, which for k up to 8 takes fewer torch ops than one wide
-    reduction (a round's launches on the host are the prover's cost)."""
-    x = parts[0] if len(parts) == 1 else torch.cat([_to(p, ctrl) for p in parts])
+    groups' canonical parts, gathered across the ranks of a process group;
+    k a power of two), on the controller: log2(k) levels of pairwise limb
+    sums (< 2m), each made canonical by one batched canon, which for k up
+    to 8 takes fewer torch ops than one wide reduction (a round's launches
+    on the host are the prover's cost).  The parts are canonical, so every
+    rank holds the same bits."""
+    x = parts[0] if len(parts) == 1 else torch.cat([_to(p, sh.ctrl) for p in parts])
+    x = sh.all_gather(x)
     while x.shape[0] > 1:
         x = F.canon(SCALAR, x[0::2] + x[1::2])
     return x[0]
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """What crosses the ranks of a process group, in one place: every rank's
+    ``x`` (one shape on all), concatenated along the leading axis in rank
+    order, back on x's device.  Gloo carries host tensors here: a CUDA
+    tensor goes through host memory, copied there and back explicitly (the
+    copy is the transport; the compute stays on the card).  NCCL takes the
+    card's tensor as it is, on the current stream, with no host wait."""
+    wire = (x.cpu() if dist.get_backend(group) == "gloo" else x).contiguous()
+    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    return _to(torch.cat(parts), x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -174,10 +210,22 @@ class _Shards:
     """k shards on torch devices.  ``groups`` = [(device, shard ids)]: one a
     device, in the order the devices first appear, each with its shards in
     ascending order; the controller is ``devices[0]``, which must be the
-    instance's device."""
+    instance's device.  With a process ``group`` of W ranks, rank r holds
+    the shards [r k/W, (r+1) k/W) on the instance's device (its card), and
+    is its own controller."""
 
-    def __init__(self, dev: r1cs.R1CSDevice, k: int | None, devices):
-        if devices is None:
+    def __init__(self, dev: r1cs.R1CSDevice, k: int | None, devices, group=None):
+        self.group = group
+        world = 1 if group is None else dist.get_world_size(group)
+        if group is not None:
+            if devices is not None:
+                raise ValueError("in a process group each rank holds its shards on the "
+                                 "instance's device: pass no devices")
+            k = k or world
+            if k % world:
+                raise ValueError(f"{k} shards do not split over {world} ranks")
+            devices = [dev.device] * (k // world)
+        elif devices is None:
             visible = torch.cuda.device_count()
             k = k or visible
             if not k or visible < k:
@@ -185,7 +233,7 @@ class _Shards:
                                  "visible (pass devices to place several shards on one)")
             devices = [torch.device("cuda", i) for i in range(k)]
         k = k or len(devices)
-        if len(devices) != k:
+        if len(devices) * world != k:
             raise ValueError(f"{k} shards and {len(devices)} devices")
         if k & (k - 1):
             raise ValueError(f"the number of shards must be a power of two, got {k}")
@@ -205,18 +253,24 @@ class _Shards:
             raise ValueError(f"devices[0] ({devs[0]}) must be the instance's device "
                              f"({dev.device}): the controller")
         self.k, self.log_k, self.ctrl = k, k.bit_length() - 1, devs[0]
+        first = (0 if group is None else dist.get_rank(group)) * len(devs)
         groups: dict = {}
         for s, d in enumerate(devs):
-            groups.setdefault(d, []).append(s)
+            groups.setdefault(d, []).append(first + s)
         self.groups = list(groups.items())
-        order = [s for _, ss in self.groups for s in ss]
+        order = [s - first for _, ss in self.groups for s in ss]
         # the gathered survivors come in group order: back to shard order
-        self.unperm = (None if order == list(range(k))
+        self.unperm = (None if order == list(range(len(devs)))
                        else torch.tensor(np.argsort(order), device=self.ctrl))
 
     def put(self, x: torch.Tensor) -> list:
         """x (on the controller) on every group's device."""
         return [_to(x, d) for d, _ in self.groups]
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's part (its shards in order on the leading axis) ->
+        every rank's, in shard order (``all_gather``); x without a group."""
+        return x if self.group is None else all_gather(x, self.group)
 
     def gather(self, tables: list) -> list:
         """Each table's element 0 of every shard -> [k, 22] on the
@@ -224,8 +278,21 @@ class _Shards:
         out = []
         for q in range(len(tables[0])):
             g = torch.cat([_to(tabs[q][:, 0, :], self.ctrl) for tabs in tables])
-            out.append(g if self.unperm is None else g.index_select(0, self.unperm))
+            out.append(self.all_gather(g if self.unperm is None
+                                       else g.index_select(0, self.unperm)))
         return out
+
+    def blind_seed(self) -> bytes:
+        """A fresh 32-byte blind seed, the same on every rank: rank 0's,
+        broadcast, so that the replicated controllers draw the same blinds."""
+        seed = os.urandom(32)
+        if self.group is None:
+            return seed
+        buf = torch.frombuffer(bytearray(seed), dtype=torch.uint8)
+        if dist.get_backend(self.group) != "gloo":  # NCCL carries card tensors only
+            buf = buf.to(self.ctrl)
+        dist.broadcast(buf, dist.get_global_rank(self.group, 0), group=self.group)
+        return bytes(buf.cpu().tolist())
 
 
 def _group_parts(dev: r1cs.R1CSDevice, sh: _Shards) -> list:
@@ -238,12 +305,12 @@ def _group_parts(dev: r1cs.R1CSDevice, sh: _Shards) -> list:
     nl1, nl2 = dev.num_cons // k, dev.num_z // k
     out = []
     for d, ss in sh.groups:
-        by_row, by_col = partition_r1cs(dev, k, d)
+        by_row, by_col = partition_r1cs(dev, k, d, ss)
         place = torch.arange(len(ss), device=d)[:, None]
         sid = torch.tensor(ss, device=d)[:, None]
 
         def pick(x):
-            return _take(x.view((k, -1) + tuple(x.shape[1:])), ss)
+            return x.view((len(ss), -1) + tuple(x.shape[1:]))
 
         mats = {"row": [], "col": [], "eval": []}
         for (R, C, V), (Rc, Cc, Vc) in zip(by_row, by_col):
@@ -289,11 +356,13 @@ def _commit(sh: _Shards, w_flat, row_blinds, mu_rows: int, mu_cols: int) -> list
         else:
             pts = commitments.commit_rows(_to(W_loc, d), [0] * W_loc.shape[0], GENS_LABEL,
                                           tbl=tbl)
-        got = ristretto.encode(pts).cpu().numpy()
+        got = ristretto.encode(pts)
         if ss is None:
-            enc[:] = got
+            enc[:] = got.cpu().numpy()
+        elif sh.group is not None:  # this rank's rows; every rank's, in row order
+            enc[:] = sh.all_gather(got).cpu().numpy()
         else:
-            enc.reshape(k, rl, 32)[ss] = got.reshape(len(ss), rl, 32)
+            enc.reshape(k, rl, 32)[ss] = got.cpu().numpy().reshape(len(ss), rl, 32)
     return [bytes(row.tobytes()) for row in enc]
 
 
@@ -323,10 +392,12 @@ def _mtable(sh: _Shards, rabc, e_rx, parts: list) -> list:
 def _eval_at(sh: _Shards, e_rx, e_ry, parts: list) -> torch.Tensor:
     """A~, B~, C~ at (rx, ry), [3, 22] canonical: each group's sums over its
     row partition at global rows, summed over the groups on the controller
-    (once a prove: one wide reduction)."""
+    (once a prove: one wide reduction), then over the ranks of a process
+    group (``_psum_canon``)."""
     sums = [_to(torch.stack(part["eval"].eval_at(_to(e_rx, d), _to(e_ry, d))), sh.ctrl)
             for (d, _), part in zip(sh.groups, parts)]
-    return F.canon(SCALAR, F.sum_reduce(SCALAR, torch.stack(sums), axis=0))
+    return _psum_canon([F.canon(SCALAR, F.sum_reduce(SCALAR, torch.stack(sums), axis=0))[None]],
+                       sh)
 
 
 def _local_rounds(sh: _Shards, tables: list, degree: int, step) -> tuple:
@@ -340,7 +411,7 @@ def _local_rounds(sh: _Shards, tables: list, degree: int, step) -> tuple:
     r = None
     for j in range(rounds):
         half = None if r is None else n_local >> j
-        r = step(_psum_canon(_local_evals_raw(sh, tables, degree, r, half), sh.ctrl), j)
+        r = step(_psum_canon(_local_evals_raw(sh, tables, degree, r, half), sh), j)
     if rounds:
         _local_evals_raw(sh, tables, degree, r, 1)
     return rounds, sh.gather(tables)
@@ -421,11 +492,13 @@ def _start(t: Transcript, dev: r1cs.R1CSDevice, inputs_ints: list) -> Transcript
 
 @torch.inference_mode()
 def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = None,
-          proto: bytes = None, devices=None):
+          proto: bytes = None, devices=None, group=None):
     """The plain NIZK over k shards (``devices``: one torch device a shard,
     by default cuda:0 .. cuda:k-1; k defaults to len(devices), else to the
-    visible cards): byte-identical to hybrid.prove and nizk.prove."""
-    sh = _Shards(dev, k, devices)
+    visible cards; or, with a process ``group``, k/W shards a rank on the
+    instance's device, k defaulting to W): byte-identical to hybrid.prove
+    and nizk.prove, on every rank."""
+    sh = _Shards(dev, k, devices, group)
     nvp = dev.num_vars
     mu_rows, mu_cols = _hyrax_dims(nvp)
     mu_x = (dev.num_cons - 1).bit_length()
@@ -461,17 +534,18 @@ def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = Non
 
 @torch.inference_mode()
 def prove_zk(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = None,
-             seed: bytes = None, devices=None):
-    """The zk NIZK over k shards (``devices`` and ``k`` as in ``prove``):
-    byte-identical to hybrid.prove_zk and zknizk.prove with the same blind
-    seed."""
+             seed: bytes = None, devices=None, group=None):
+    """The zk NIZK over k shards (``devices``, ``k`` and ``group`` as in
+    ``prove``): byte-identical to hybrid.prove_zk and zknizk.prove with the
+    same blind seed.  In a process group the seed, if none is given, is
+    rank 0's (``_Shards.blind_seed``)."""
     from ..spartan.pedersen_host import BlindSource
     from ..spartan.zkfused import _mid_tables, _round_tables, assemble_zk_proof
     from ..spartan.zknizk import PROTO as ZK_PROTO
 
-    sh = _Shards(dev, k, devices)
+    sh = _Shards(dev, k, devices, group)
     ctrl = sh.ctrl
-    rng = BlindSource(seed or os.urandom(32))
+    rng = BlindSource(seed or sh.blind_seed())
     mu_rows, mu_cols = _hyrax_dims(dev.num_vars)
     mu_x = (dev.num_cons - 1).bit_length()
     with metrics.timed("blinds"):  # zknizk.prove's order

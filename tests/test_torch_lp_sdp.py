@@ -231,7 +231,8 @@ def test_cli_failing_instance_gives_exit_code_1(tmp_path, capsys):
     (["--sdp", "--full"], "this suite is not in the repository"),
     (["--lp", "--config", "x.json"], "--config is for --sgd"),
     (["--sgd", "--custom", "x.mps"], "--sgd has no --custom mode"),
-    (["--lp", "--custom", "x.mps", "--coordinator", "host:1234"], "ROADMAP.md item 1.17"),
+    (["--lp", "--custom", "x.mps", "--num-hosts", "2"],
+     "--coordinator, --num-hosts and --host-id go together"),
     (["--sdp", "--custom", "x.dat-s", "--batch", "--snark"], "mutually exclusive"),
 ])
 def test_cli_lp_sdp_refusals(tmp_path, capsys, flags, needle):
@@ -244,11 +245,50 @@ def test_cli_lp_sdp_refusals(tmp_path, capsys, flags, needle):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("fn", ["run_lp", "run_sdp"])
-@pytest.mark.parametrize("flag", ["coordinator"])
-def test_run_functions_refuse_unported_modes(tmp_path, fn, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.17"):
-        getattr(cli, fn)([], str(tmp_path), device="cpu", **{flag: "host:1234"})
+def test_cli_cpu_flag_is_device_cpu(lp_file, tmp_path):
+    """The JAX CLI's --cpu: the same run as --device cpu (transparent, so
+    the two proofs are byte-equal)."""
+    outs = [tmp_path / "cpu", tmp_path / "device"]
+    for flag, out in zip((["--cpu"], ["--device", "cpu"]), outs):
+        assert cli.main(["--lp", "--custom", lp_file, "--transparent", "--out", str(out)]
+                        + flag) == 0
+        assert _meta(out, "LP", "lp1x2.mps")["device"] == "cpu"
+    a, b = ((out / "LP" / "lp1x2.mps.proof.json").read_text() for out in outs)
+    assert a == b
+
+
+@pytest.fixture(scope="module")
+def zkif_triple(lp_file, tmp_path_factory):
+    """The LP as a zkinterface triple (circuit, inputs, witness), written by
+    the port's exporter."""
+    from otti_tpu_torch.io import zkif as t_zkif
+
+    prob = t_mps.parse_mps(lp_file)
+    x, y, _ = t_lp_oracle.solve(prob)
+    base = str(tmp_path_factory.mktemp("zkif") / "lp1x2")
+    t_zkif.export_r1cs(*t_lp_cert.build(prob, x, y), base)
+    return [base + ".zkif", base + ".inp.zkif", base + ".wit.zkif"]
+
+
+def test_cli_verify_zkif_ignores_wire_as_the_jax_cli(zkif_triple, tmp_path, monkeypatch):
+    """--verify-zkif proves with the native labels whatever --wire says, in
+    both CLIs: one blind seed (os.urandom patched) and the classic prover
+    give the same proof bytes and meta mode."""
+    from otti_tpu import cli as jcli
+
+    monkeypatch.setenv("OTTI_CLASSIC", "1")
+    monkeypatch.setattr(os, "urandom", lambda n: bytes(range(n)))
+    args = ["--verify-zkif"] + zkif_triple + ["--wire", "spartan"]
+    assert jcli.main(args + ["--out", str(tmp_path / "jax")]) == 0
+    assert cli.main(args + ["--device", "cpu", "--out", str(tmp_path / "torch")]) == 0
+    metas, proofs = [], []
+    for side in ("jax", "torch"):
+        with open(tmp_path / side / "lp1x2.zkif.meta.json") as f:
+            metas.append(json.load(f))
+        proofs.append((tmp_path / side / "lp1x2.zkif.proof.json").read_text())
+    assert metas[0]["mode"] == metas[1]["mode"] == "zk-classic"
+    assert metas[0]["verified"] and metas[1]["verified"]
+    assert proofs[0] == proofs[1]
 
 
 def test_run_lp_batch_proves_a_shape_class(lp_file, tmp_path, capsys):

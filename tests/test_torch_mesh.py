@@ -172,7 +172,7 @@ def test_prove_zk_is_byte_equal_to_jax_and_hybrid(inst, refs, k):
 @pytest.mark.parametrize("k,groups", LAYOUTS[3:])
 def test_shards_split_over_groups_give_the_same_bytes(inst, refs, monkeypatch, k, groups):
     dt, v, i = inst["dev_t"], inst["vars"], inst["inputs"]
-    monkeypatch.setattr(HS, "_Shards", lambda dev, k_, devices: _shards(dev, k_, groups))
+    monkeypatch.setattr(HS, "_Shards", lambda dev, k_, devices, group: _shards(dev, k_, groups))
     assert TS.dumps(HS.prove(dt, v, i, k=k)) == refs["plain"]
 
 

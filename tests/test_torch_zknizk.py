@@ -398,7 +398,8 @@ def test_cli_resume_skips_a_verified_instance(tiny_config, capsys):
     (["--lp"], "--config is for --sgd"),
     (["--sdp"], "--config is for --sgd"),
     (["--snark", "--zk"], "--zk and --snark are mutually exclusive"),
-    (["--coordinator", "host:1234"], "ROADMAP.md item 1.17"),
+    (["--coordinator", "127.0.0.1:1", "--num-hosts", "2", "--host-id", "2"],
+     "--host-id 2 is not a rank of --num-hosts 2"),
     (["--batch", "--snark"], "--batch and --snark are mutually exclusive"),
     (["--wire", "other"], "invalid choice"),
 ])
@@ -409,13 +410,6 @@ def test_cli_refusals(tiny_config, capsys, flags, needle):
     assert err.value.code == 2
     assert needle in capsys.readouterr().err
     assert not out.exists()
-
-
-@pytest.mark.parametrize("flag", ["coordinator"])
-def test_run_sgd_refuses_unported_modes(tiny_config, flag):
-    cfg, out = tiny_config
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.17"):
-        cli.run_sgd(cfg, str(out), device="cpu", **{flag: "host:1234"})
 
 
 @pytest.mark.parametrize("zk,mode", [(True, "batched-zk"), (False, "batched")])
