@@ -174,32 +174,44 @@ def _choose_fused(shape) -> bool:
     return max(shape.num_vars_padded, shape.num_cons_padded) <= max_vars
 
 
-def _group():
-    """The process group this process is a rank of (runtime.init_distributed),
-    or None."""
-    import torch.distributed as dist
+def _skipped(out_dir, names, group=None) -> list:
+    """Which of ``names`` --resume skips: those whose meta in ``out_dir``
+    says they verified.  In a process group rank 0's answer, broadcast, as
+    rank 0 alone writes ``out_dir``: so every rank proves the same
+    instances."""
+    flags = [already_verified(out_dir, n) for n in names]
+    if group is not None:
+        import torch.distributed as dist
 
-    return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+        box = [flags]
+        dist.broadcast_object_list(box, src=0, group=group)
+        flags = box[0]
+    return flags
 
 
 def _visible_devices(device) -> list:
     """The devices a mesh on ``device``'s kind may use: every card
-    (cuda:0, cuda:1, ...) for CUDA, the one CPU otherwise; in a process
-    group one a rank, each rank's own (as jax.devices() spans every host),
-    which this process names by its own."""
+    (cuda:0, cuda:1, ...) for CUDA, the one CPU otherwise."""
     import torch
-    import torch.distributed as dist
 
-    group = _group()
-    if group is not None:
-        return [torch.device(device)] * dist.get_world_size(group)
     if torch.device(device).type == "cuda":
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return [torch.device(device)]
 
 
-# copied from otti_tpu/cli.py::_mesh_size (the visible devices counted by _visible_devices)
-def _mesh_size(mesh, shape, device="cuda") -> int:
+def _device_count(device, group=None) -> int:
+    """The devices a mesh may span, as jax.devices() counts them: in a
+    process group one a rank (each rank's own card, as jax.devices() spans
+    every host), else the visible ones."""
+    if group is not None:
+        import torch.distributed as dist
+
+        return dist.get_world_size(group)
+    return len(_visible_devices(device))
+
+
+# copied from otti_tpu/cli.py::_mesh_size (the devices counted by _device_count)
+def _mesh_size(mesh, shape, device="cuda", group=None) -> int:
     """Resolve --mesh into a device count usable for this instance.
 
     Returns 1 (single-chip) unless >1 devices are requested AND visible
@@ -207,7 +219,7 @@ def _mesh_size(mesh, shape, device="cuda") -> int:
     (num_z/k >= 2, num_cons >= k)."""
     if not mesh:
         return 1
-    avail = len(_visible_devices(device))
+    avail = _device_count(device, group)
     k = avail if mesh == "auto" else int(mesh)
     k = min(k, avail)
     if k > 1 and k & (k - 1):
@@ -232,11 +244,11 @@ def _mesh_size(mesh, shape, device="cuda") -> int:
     return k
 
 
-def _provers(shape, zk: bool, wire: str, mesh_k: int = 1, device="cuda") -> tuple:
+def _provers(shape, zk: bool, wire: str, mesh_k: int = 1, device="cuda", group=None) -> tuple:
     """(prove_fn, verify_fn, classic) for one lowered instance, as the JAX
     CLI's dispatch (otti_tpu/cli.py, the branches after _choose_fused)
     picks them; ``mesh_k`` > 1 shards the prover over the first mesh_k
-    visible devices, or over the ranks of the process group."""
+    visible devices, or over the ranks of the process group ``group``."""
     from .spartan import fused, hybrid, nizk, zkfused, zknizk
 
     use_fused = _choose_fused(shape)
@@ -252,7 +264,6 @@ def _provers(shape, zk: bool, wire: str, mesh_k: int = 1, device="cuda") -> tupl
         # to trade compile time, which eager torch does not spend
         from .parallel import hybrid_sharded
 
-        group = _group()
         if group is not None:  # a shard a rank, each on the rank's card
             sharded = hybrid_sharded.prove_zk if zk else hybrid_sharded.prove
             return (lambda d, v, i: sharded(d, v, i, k=mesh_k, group=group),
@@ -273,19 +284,20 @@ def _provers(shape, zk: bool, wire: str, mesh_k: int = 1, device="cuda") -> tupl
 
 def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None,
                      zk=True, snark=False, emit_zkif=False, wire="otti", device="cuda",
-                     extra_meta=None, mesh=None) -> bool:
+                     extra_meta=None, mesh=None, group=None) -> bool:
     """Prove + verify of one lowered instance on ``device``: in zero
     knowledge, transparent with ``zk=False``, with the prover that
     ``_provers`` picks (over ``_mesh_size(mesh)`` devices), or in SNARK
     mode with ``snark=True`` (spartan/snark.py).  The wire profile touches only the zk prover.  With
     ``emit_zkif`` the instance is also written as a zkinterface triple
     (<name>.zkif, .inp.zkif, .wit.zkif) that ``--verify-zkif`` reads back.
-    In a process group only rank 0 writes ``out_dir``."""
+    In the process group ``group`` the mesh is every rank or none, and only
+    rank 0 writes ``out_dir``."""
     from . import metrics
 
     from .spartan import serial, snark as snark_mod, spark
 
-    out_dir, dist_meta = _rank_out(out_dir, device)
+    out_dir, dist_meta = _rank_out(out_dir, device, group)
     if emit_zkif and out_dir:
         from .io import zkif as zkif_mod
 
@@ -307,14 +319,14 @@ def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None
         def verify_fn(d, i, p):
             return snark_mod.verify(d, comm, i, p)
     else:
-        mesh_k = _mesh_size(mesh, shape, device)
-        ranks = len(_visible_devices(device))
-        if 1 < mesh_k < ranks and _group() is not None:
+        mesh_k = _mesh_size(mesh, shape, device, group)
+        ranks = _device_count(device, group)
+        if group is not None and 1 < mesh_k < ranks:
             # a group's mesh is every rank or none: a rank outside it has no part
             _stage(f"  --mesh: {shape.num_cons_padded} padded cons take {mesh_k} of the "
                    f"{ranks} ranks; each rank proves {name} alone")
             mesh_k = 1
-        prove_fn, verify_fn, classic = _provers(shape, zk, wire, mesh_k, device)
+        prove_fn, verify_fn, classic = _provers(shape, zk, wire, mesh_k, device, group)
         mode = (("zk" if zk else "plain") + (f"-mesh{mesh_k}" if mesh_k > 1 else "")
                 + (f"-wire-{wire}" if wire != "otti" else "") + ("-classic" if classic else ""))
         tag = " (zk)" if zk else ""
@@ -364,7 +376,7 @@ def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None
     return ok
 
 
-def _batched_prove_and_verify(lowered, out_dir, zk, device="cuda") -> bool:
+def _batched_prove_and_verify(lowered, out_dir, zk, device="cuda", group=None) -> bool:
     """Batched proving of lowered instances ``(name, shape, vars, inputs,
     timer)``, zk or plain (the JAX CLI's ``_batched_prove_and_verify``).
 
@@ -372,13 +384,13 @@ def _batched_prove_and_verify(lowered, out_dir, zk, device="cuda") -> bool:
     largest dimensions and proved as one stacked device chain
     (spartan/batched.py), and each proof is verified on its own and saved
     with the usual artifacts; ``timings.prove`` is the batch's time over its
-    size.  In a process group every rank proves each batch alone and only
-    rank 0 writes ``out_dir``."""
+    size.  In the process group ``group`` every rank proves each batch
+    alone and only rank 0 writes ``out_dir``."""
     from . import metrics
 
     from .spartan import batched, nizk, serial, zknizk
 
-    out_dir, dist_meta = _rank_out(out_dir, device)
+    out_dir, dist_meta = _rank_out(out_dir, device, group)
     groups: dict = {}
     for item in lowered:
         shape = item[1]
@@ -431,14 +443,13 @@ def _batched_prove_and_verify(lowered, out_dir, zk, device="cuda") -> bool:
     return ok_all
 
 
-def _rank_out(out_dir, device) -> tuple:
+def _rank_out(out_dir, device, group=None) -> tuple:
     """(the directory this process writes, None on a rank other than 0;
     the meta of its process group: rank, world size, backend and the
     rank's card), or (out_dir, {}) without a group."""
     import torch
     import torch.distributed as dist
 
-    group = _group()
     if group is None:
         return out_dir, {}
     rank, card = dist.get_rank(group), torch.device(device)
@@ -483,13 +494,16 @@ def lower_sgd(dataset: str, params: dict, prob_check: bool = False, timer=None):
 
 
 def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delta=None,
-           emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda") -> bool:
+           emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda",
+           group=None) -> bool:
     """Prove and verify the optimality certificate of every MPS file:
     parse -> LP oracle -> lower -> prove; artifacts go to ``<home_out>/LP``.
     One failing instance does not stop the others.  With ``batch`` every
     file is lowered first and each padded shape class proved as one batch
-    (``_batched_prove_and_verify``), as in run_sdp and run_sgd.  Returns
-    True when every instance verified."""
+    (``_batched_prove_and_verify``), as in run_sdp and run_sgd.  ``group``:
+    the process group this process is a rank of (runtime.init_distributed),
+    or None, in the three run functions.  Returns True when every instance
+    verified."""
     from .io import mps
     from .oracle import lp_oracle
 
@@ -510,10 +524,11 @@ def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delt
             shape, vars_, inputs = lp_cert.build(prob, x, y, **kw)
         return shape, vars_, inputs, opt, timer
 
-    todo = [p for p in files
-            if not (resume and already_verified(out_dir, os.path.basename(p)))]
-    for p in files:
-        if p not in todo:
+    skip = (_skipped(out_dir, [os.path.basename(p) for p in files], group) if resume
+            else [False] * len(files))
+    todo = [p for p, s in zip(files, skip) if not s]
+    for p, s in zip(files, skip):
+        if s:
             _stage(f"Skipping {os.path.basename(p)} (already verified)")
     for path, fut in _lower_ahead(todo, lower_one):
         name = os.path.basename(path)
@@ -525,19 +540,21 @@ def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delt
                 lowered.append((name, shape, vars_, inputs, timer))
             elif prove:
                 ok_all &= prove_and_verify(shape, vars_, inputs, name, timer, out_dir, zk,
-                                           snark, emit_zkif, wire, device, mesh=mesh)
+                                           snark, emit_zkif, wire, device, mesh=mesh,
+                                           group=group)
             else:
                 _stage(f"  lowered {name}: {shape.num_cons} constraints [{timer.report()}]")
         except Exception as e:  # fail-soft per instance, as the JAX CLI
             _stage(f"INSTANCE FAILED {name}: {type(e).__name__}: {e}")
             ok_all = False
     if prove and batch and lowered:
-        ok_all &= _batched_prove_and_verify(lowered, out_dir, zk, device)
+        ok_all &= _batched_prove_and_verify(lowered, out_dir, zk, device, group)
     return ok_all
 
 
 def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, epsilon=None,
-            emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda") -> bool:
+            emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda",
+            group=None) -> bool:
     """Prove and verify the optimality certificate of every SDPA sparse
     (``.dat-s``) file: parse -> SDP oracle -> Cholesky witnesses -> lower ->
     prove; artifacts go to ``<home_out>/SDP``.  A file of another kind is
@@ -566,14 +583,16 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
 
     todo = []
     for path in files:
-        name = os.path.basename(path)
-        if not name.endswith(".dat-s"):
-            _stage(f"ERROR: {name} is not a dat-s file")
-            continue
-        if resume and already_verified(out_dir, name):
-            _stage(f"Skipping {name} (already verified)")
-            continue
-        todo.append(path)
+        if not path.endswith(".dat-s"):
+            _stage(f"ERROR: {os.path.basename(path)} is not a dat-s file")
+        else:
+            todo.append(path)
+    if resume:
+        skip = _skipped(out_dir, [os.path.basename(p) for p in todo], group)
+        for p, s in zip(todo, skip):
+            if s:
+                _stage(f"Skipping {os.path.basename(p)} (already verified)")
+        todo = [p for p, s in zip(todo, skip) if not s]
     for path, fut in _lower_ahead(todo, lower_one):
         name = os.path.basename(path)
         _stage(f"Making certificate for {name}")
@@ -583,20 +602,21 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
                 lowered.append((name, shape, vars_, inputs, timer))
             elif prove:
                 ok_all &= prove_and_verify(shape, vars_, inputs, name, timer, out_dir, zk,
-                                           snark, emit_zkif, wire, device, mesh=mesh)
+                                           snark, emit_zkif, wire, device, mesh=mesh,
+                                           group=group)
             else:
                 _stage(f"  lowered {name}: {shape.num_cons} constraints [{timer.report()}]")
         except Exception as e:
             _stage(f"INSTANCE FAILED {name}: {type(e).__name__}: {e}")
             ok_all = False
     if prove and batch and lowered:
-        ok_all &= _batched_prove_and_verify(lowered, out_dir, zk, device)
+        ok_all &= _batched_prove_and_verify(lowered, out_dir, zk, device, group)
     return ok_all
 
 
 def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
             resume=False, batch=False, snark=False, emit_zkif=False, mesh=None, wire="otti",
-            device="cuda") -> bool:
+            device="cuda", group=None) -> bool:
     """Prove and verify every instance of a PMLB SGD config, in zero
     knowledge unless ``zk=False`` or ``snark=True``; artifacts go to
     ``<home_out>/SGD``.  With ``resume`` an instance whose meta says it
@@ -612,13 +632,14 @@ def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
         timer = Timer()
         return lower_sgd(item[0], item[1], prob_check, timer) + (timer,)
 
-    todo = []
-    for dataset, params in cfg.items():
-        name = ("prob_" if prob_check else "") + dataset
-        if resume and already_verified(out_dir, name):
-            _stage(f"Skipping {name} (already verified)")
-            continue
-        todo.append((dataset, params, name))
+    todo = [(dataset, params, ("prob_" if prob_check else "") + dataset)
+            for dataset, params in cfg.items()]
+    if resume:
+        skip = _skipped(out_dir, [name for _, _, name in todo], group)
+        for (_, _, name), s in zip(todo, skip):
+            if s:
+                _stage(f"Skipping {name} (already verified)")
+        todo = [t for t, s in zip(todo, skip) if not s]
     for (dataset, params, name), fut in _lower_ahead(todo, lower_one):
         _stage(f"Compile, solve, and prove {dataset}")
         try:
@@ -632,7 +653,7 @@ def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
                 continue
             ok_all &= prove_and_verify(
                 shape, vars_, inputs, name, timer, out_dir, zk, snark, emit_zkif, wire, device,
-                mesh=mesh, extra_meta={
+                mesh=mesh, group=group, extra_meta={
                     "data_source": data_source,
                     "data_shape": list(xshape),
                     # the scale applies to cached real data only; the
@@ -645,18 +666,18 @@ def run_sgd(config_path, home_out, prove=True, prob_check=False, zk=True,
             _stage(f"INSTANCE FAILED {name}: {type(e).__name__}: {e}")
             ok_all = False
     if prove and batch and lowered:
-        ok_all &= _batched_prove_and_verify(lowered, out_dir, zk, device)
+        ok_all &= _batched_prove_and_verify(lowered, out_dir, zk, device, group)
     return ok_all
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="otti-tpu-torch")
-    group = parser.add_mutually_exclusive_group()
-    group.add_argument("--small", action="store_true",
+    suite = parser.add_mutually_exclusive_group()
+    suite.add_argument("--small", action="store_true",
                        help="the small Otti suite under --datasets (the default)")
-    group.add_argument("--full", action="store_true", help="the full Otti suite")
-    group.add_argument("--custom", type=str, help="one MPS (--lp) or .dat-s (--sdp) file")
-    group.add_argument("--config", type=str, help="an SGD config JSON (PMLB format)")
+    suite.add_argument("--full", action="store_true", help="the full Otti suite")
+    suite.add_argument("--custom", type=str, help="one MPS (--lp) or .dat-s (--sdp) file")
+    suite.add_argument("--config", type=str, help="an SGD config JSON (PMLB format)")
     parser.add_argument("--lp", action="store_true", help="LP optimality certificates")
     parser.add_argument("--sdp", action="store_true", help="SDP optimality certificates")
     parser.add_argument("--sgd", action="store_true", help="SGD training certificates")
@@ -735,28 +756,30 @@ def main(argv=None) -> int:
         check_mesh(args.num_hosts)  # before the rendezvous, which would wait for the others
     from . import runtime
 
+    group = None
     if runtime.init_distributed(args.coordinator, args.num_hosts, args.host_id, args.device):
         import torch
         import torch.distributed as dist
 
+        group = dist.group.WORLD
         check_mesh(dist.get_world_size())
         if torch.device(args.device).type == "cuda":
             args.device = f"cuda:{torch.cuda.current_device()}"  # the rank's card
         _stage(f"Rank {dist.get_rank()} of {dist.get_world_size()} ({dist.get_backend()}) on "
                f"{args.device}")
     try:
-        return _main(parser, args, prove)
+        return _main(parser, args, prove, group)
     finally:
-        if _group() is not None:
-            import torch.distributed as dist
-
+        if group is not None:
             dist.destroy_process_group()
 
 
-def _main(parser, args, prove: bool) -> int:
-    """The run that ``main`` parsed and joined."""
+def _main(parser, args, prove: bool, group) -> int:
+    """The run that ``main`` parsed and joined (``group``: its process group,
+    or None)."""
     common = dict(zk=args.zk, resume=args.resume, snark=args.snark, emit_zkif=args.emit_zkif,
-                  batch=args.batch, mesh=args.mesh, wire=args.wire, device=args.device)
+                  batch=args.batch, mesh=args.mesh, wire=args.wire, device=args.device,
+                  group=group)
 
     def listdir(sub):
         d = os.path.join(args.datasets, sub)
@@ -777,7 +800,7 @@ def _main(parser, args, prove: bool) -> int:
         _stage(f"Importing {circuit}")
         shape, vars_, inputs = zkif_mod.import_r1cs(circuit, wit, inp)
         ok = prove_and_verify(shape, vars_, inputs, os.path.basename(circuit), Timer(),
-                              args.out, args.zk, args.snark, device=args.device)
+                              args.out, args.zk, args.snark, device=args.device, group=group)
         return 0 if ok else 1
     if args.lp or args.sdp:
         kind, sub = ("LP", "LP/MPS-") if args.lp else ("SDP", "SDP/")

@@ -218,12 +218,6 @@ def msm_shared_bases(points: dict, scalar_matrix: torch.Tensor) -> dict:
     return acc
 
 
-def msm_jit(n: int, window: int | None = None):
-    """The JAX module's cached jitted MSM for size n: here a plain callable
-    (eager torch compiles nothing)."""
-    return lambda pts, sc: msm(pts, sc, window)
-
-
 N_WIN = -(-SCALAR_BITS // FIXED_BASE_WINDOW)  # 32 windows
 N_DIGITS = 1 << FIXED_BASE_WINDOW  # 256 digits
 

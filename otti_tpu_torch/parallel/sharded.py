@@ -40,12 +40,10 @@ from .hybrid_sharded import all_gather
 class Mesh:
     """``devices``: the devices of this process's shards, in shard order;
     ``group``: the process group whose rank r holds the shards [r L, (r+1)
-    L), L = len(devices), or None; ``dp``: the JAX mesh's data-parallel
-    axis, over which the four functions replicate."""
+    L), L = len(devices), or None."""
 
     devices: tuple
     group: object = None
-    dp: int = 1
 
     @property
     def world(self) -> int:
@@ -73,7 +71,8 @@ class Mesh:
 
 def make_mesh(n_devices: int | None = None, dp: int = 1, device="cuda", group=None) -> Mesh:
     """The "sp" axis of the JAX module's (dp, sp) mesh of ``n_devices``:
-    sp = n_devices / dp shards.  Without a group the shards go over the
+    sp = n_devices / dp shards (the port keeps no "dp" axis: nothing
+    replicates over it).  Without a group the shards go over the
     visible cards (the one CPU for ``device="cpu"``), one a card while
     there are enough, else in blocks, and ``n_devices`` defaults to their
     number; with a process group of W ranks
@@ -87,14 +86,14 @@ def make_mesh(n_devices: int | None = None, dp: int = 1, device="cuda", group=No
         sp = (n_devices or world) // dp
         if sp % world:
             raise ValueError(f"{sp} shards do not split over {world} ranks")
-        return Mesh(tuple([device] * (sp // world)), group, dp)
+        return Mesh(tuple([device] * (sp // world)), group)
     visible = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
                if device.type == "cuda" else [device])
     sp = (n_devices or len(visible)) // dp
     if not sp:
         raise ValueError("a mesh needs a device")
     per = -(-sp // len(visible))  # shards a device: the first sp devices, or blocks of shards
-    return Mesh(tuple(visible[s // per] for s in range(sp)), None, dp)
+    return Mesh(tuple(visible[s // per] for s in range(sp)))
 
 
 def shard(mesh: Mesh, x: torch.Tensor) -> list:

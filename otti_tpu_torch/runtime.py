@@ -13,9 +13,11 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
 
 import torch
 import torch.distributed as dist
+from torch.distributed.rendezvous import rendezvous
 
 # how long a rank waits for the others, at the rendezvous and in each
 # collective, before it fails instead of hanging
@@ -26,6 +28,26 @@ TIMEOUT = datetime.timedelta(seconds=300)
 _LAUNCHER_ENV = ("MASTER_ADDR", "WORLD_SIZE", "RANK")
 
 
+def host_ranks(store, rank: int, world: int) -> tuple:
+    """(how many ranks of the group run on this host, this rank's index
+    among them): every rank posts its host's name to the rendezvous
+    ``store`` and reads every other's."""
+    host = socket.gethostname()
+    store.set(f"otti/host/{rank}", host)
+    keys = [f"otti/host/{r}" for r in range(world)]
+    store.wait(keys)
+    here = [store.get(k).decode() == host for k in keys]
+    return sum(here), sum(here[:rank])
+
+
+def backend_for(device, ranks_on_host: int) -> str:
+    """NCCL when every rank of this host has a card of its own, gloo when
+    ranks share a card or run on the CPU."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    return "nccl" if ranks_on_host <= torch.cuda.device_count() else "gloo"
+
+
 def init_distributed(coordinator: str | None = None, num_hosts: int | None = None,
                      host_id: int | None = None, device: str = "cuda") -> bool:
     """Join the process group of ``num_hosts`` ranks at ``coordinator``
@@ -34,12 +56,11 @@ def init_distributed(coordinator: str | None = None, num_hosts: int | None = Non
     Returns False, doing nothing, when no argument is given and the
     environment holds no launcher config (a single process).
 
-    One process a card: on CUDA the rank's card, LOCAL_RANK if the launcher
-    set it, else ``host_id`` mod the visible cards, becomes the current
-    device, so "cuda" means it from here on.  The backend is chosen by rule:
-    NCCL when every rank of this host has a card of its own (the ranks on
-    the host, LOCAL_WORLD_SIZE or else all of them, are no more than the
-    cards), gloo when ranks share a card or run on the CPU."""
+    The ranks count, at the rendezvous, how many of them share each host
+    (``host_ranks``), and the backend follows ``backend_for``.  One process a
+    card: on CUDA the rank's card, LOCAL_RANK if the launcher set it, else
+    the rank's index among the ranks of its host, mod the visible cards,
+    becomes the current device, so "cuda" means it from here on."""
     env = os.environ
     if (coordinator is None and num_hosts is None and host_id is None
             and not all(v in env for v in _LAUNCHER_ENV)):
@@ -50,14 +71,13 @@ def init_distributed(coordinator: str | None = None, num_hosts: int | None = Non
     rank = int(env["RANK"]) if host_id is None else host_id
     if not 0 <= rank < world:
         raise ValueError(f"host id {rank} is not a rank of a group of {world}")
-    backend = "gloo"
+    if torch.device(device).type == "cuda" and not torch.cuda.device_count():
+        raise RuntimeError("a CUDA rank needs a visible card (pass --device cpu for the CPU)")
+    store, rank, world = next(rendezvous(f"tcp://{coordinator}", rank, world, timeout=TIMEOUT))
+    store.set_timeout(TIMEOUT)
+    on_host, local = host_ranks(store, rank, world)
     if torch.device(device).type == "cuda":
-        cards = torch.cuda.device_count()
-        if not cards:
-            raise RuntimeError("a CUDA rank needs a visible card (pass --device cpu for the CPU)")
-        torch.cuda.set_device(int(env.get("LOCAL_RANK", rank % cards)))
-        if int(env.get("LOCAL_WORLD_SIZE", world)) <= cards:
-            backend = "nccl"
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}", world_size=world,
+        torch.cuda.set_device(int(env.get("LOCAL_RANK", local)) % torch.cuda.device_count())
+    dist.init_process_group(backend_for(device, on_host), store=store, world_size=world,
                             rank=rank, timeout=TIMEOUT)
     return True

@@ -9,13 +9,17 @@ port each pair, 240 s at most, killed on expiry).  Each rank:
 - proves ``__graft_entry__._toy_r1cs`` (16 constraints, 8 variables) by
   ``hybrid_sharded.prove`` and ``prove_zk(seed=S)`` across the two ranks,
   which must give, on both ranks, the bytes of ``hybrid.prove`` /
-  ``hybrid.prove_zk(seed=S)`` in one process (tests/test_torch_mesh.py
-  holds those against the JAX package's), and ``prove_zk`` without a seed,
-  which must give one proof on both ranks (rank 0's seed), verified.
+  ``hybrid.prove_zk(seed=S)`` in one process and of the JAX package's
+  ``nizk.prove`` / ``zknizk.prove(seed=S)`` on the same instance, and
+  ``prove_zk`` without a seed, which must give one proof on both ranks
+  (rank 0's seed), verified.
 Two more subprocesses run the command line as ranks 0 and 1 (``--mesh 2
 --transparent`` on the 8x3 SGD instance): both verify, only rank 0 writes
-``--out``.  The flags' errors are held in this process.  Tolerance: exact
-equality.
+``--out``, and its proof is the JAX command line's.  A second such pair,
+with ``--resume`` and each rank its own ``--out``, skips the instance on
+both ranks, as rank 0's ``--out`` says it verified.  The flags' errors,
+the backend rule and the count of ranks a host are held in this process.
+Tolerance: exact equality.
 """
 
 import json
@@ -53,10 +57,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_pair(argv_of_rank, **env) -> list:
+def _run_pair(argv_of_rank, env) -> list:
     """Two subprocesses, ranks 0 and 1 -> [(rc, stdout, stderr)]; both are
     killed if either outlives TIMEOUT."""
-    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu", **env)
+    env = dict(env, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     procs = [subprocess.Popen(argv_of_rank(r), cwd=REPO, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(2)]
     outs = []
@@ -72,9 +76,32 @@ def _run_pair(argv_of_rank, **env) -> list:
     return outs
 
 
+def _jax_proofs(tmp, cfg) -> dict:
+    """The JAX package's proofs: of the workers' instance, and the JAX
+    command line's run function's proof of the 8x3 instance on one device
+    (its host-transcript prover, the same bytes; the JAX parser has no
+    --config)."""
+    from otti_tpu import cli as jcli
+    from otti_tpu.spartan import nizk as JN
+    from otti_tpu.spartan import serial as JS
+    from otti_tpu.spartan import zknizk as JZ
+
+    shape, zvars = graft._toy_r1cs()
+    dev = shape.to_device()
+    res = {"plain": JS.dumps(JN.prove(dev, zvars, [])),
+           "zk": JS.dumps(JZ.prove(dev, zvars, [], seed=SEED))}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PMLB_CACHE_DIR", str(tmp / "cache"))
+        mp.setenv("OTTI_CLASSIC", "1")
+        assert jcli.run_sgd(str(cfg), str(tmp / "jax"), zk=False)
+    res["cli"] = (tmp / "jax" / "SGD" / "tiny8x3.proof.json").read_text()
+    return res
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The worker pair and the command-line pair, side by side."""
+    """The worker pair and the command-line pairs, side by side, and the JAX
+    package's proofs meanwhile in this process."""
     from tests.test_torch_device_fs import _sgd_small
 
     tmp = tmp_path_factory.mktemp("dist")
@@ -88,22 +115,29 @@ def runs(tmp_path_factory):
     cfg = tmp / "tiny.json"
     cfg.write_text(json.dumps(
         {"tiny8x3": {"classes": [1, 0], "seed": 0, "eta0": 0.1, "maxiter": 1000, "tol": 1e-4}}))
-    p_work, p_cli = _free_port(), _free_port()
+    p_work, p_cli, p_resume = _free_port(), _free_port(), _free_port()
+    # the subprocesses' environment, taken before _jax_proofs sets its own here
+    env = dict(os.environ)
     from concurrent.futures import ThreadPoolExecutor
+
+    def cli_pair(port, *flags):
+        return _run_pair(lambda r: [
+            sys.executable, "-m", "otti_tpu_torch.cli", "--sgd", "--config", str(cfg),
+            "--transparent", "--device", "cpu", "--mesh", "2", "--coordinator",
+            f"127.0.0.1:{port}", "--num-hosts", "2", "--host-id", str(r),
+            "--out", str(tmp / f"out{r}"), *flags], dict(env, PMLB_CACHE_DIR=str(tmp / "cache")))
 
     with ThreadPoolExecutor(2) as ex:
         work = ex.submit(_run_pair, lambda r: [sys.executable, os.path.abspath(__file__), str(r),
-                                               str(p_work), str(tmp / f"rank{r}.json")])
-        clis = ex.submit(_run_pair, lambda r: [
-            sys.executable, "-m", "otti_tpu_torch.cli", "--sgd", "--config", str(cfg),
-            "--transparent", "--device", "cpu", "--mesh", "2", "--coordinator",
-            f"127.0.0.1:{p_cli}", "--num-hosts", "2", "--host-id", str(r),
-            "--out", str(tmp / f"out{r}")], PMLB_CACHE_DIR=str(tmp / "cache"))
-        work, clis = work.result(), clis.result()
+                                               str(p_work), str(tmp / f"rank{r}.json")], env)
+        # the resumed pair runs once the first has written rank 0's --out
+        clis = ex.submit(lambda: (cli_pair(p_cli), cli_pair(p_resume, "--resume")))
+        jax_proofs = _jax_proofs(tmp, cfg)
+        work, (clis, resumed) = work.result(), clis.result()
     for rc, out, err in work:
         assert rc == 0, f"worker rc={rc}\n{out[-2000:]}\n{err[-3000:]}"
-    return {"tmp": tmp, "work": [json.loads((tmp / f"rank{r}.json").read_text())
-                                 for r in range(2)], "cli": clis}
+    return {"tmp": tmp, "jax": jax_proofs, "cli": clis, "resumed": resumed,
+            "work": [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]}
 
 
 def test_round_across_processes_matches_host_and_jax(runs):
@@ -139,11 +173,12 @@ def test_round_across_processes_matches_host_and_jax(runs):
 
 @pytest.mark.parametrize("mode", ["plain", "zk"])
 def test_proofs_across_processes_equal_one_process(runs, mode):
-    """hybrid_sharded over two ranks == hybrid in one process, on each rank."""
+    """hybrid_sharded over two ranks == hybrid in one process == the JAX
+    package's prover, on each rank."""
     shape_j, _ = graft._toy_r1cs()
     assert TR.random_satisfiable()[0].digest() == shape_j.digest()
     for rank in runs["work"]:
-        assert rank[mode] == rank[f"{mode}_single"]
+        assert rank[mode] == rank[f"{mode}_single"] == runs["jax"][mode]
         assert rank[f"{mode}_verified"]
 
 
@@ -167,6 +202,22 @@ def test_cli_across_processes(runs):
         0, 2, "gloo", "cpu")
 
 
+def test_cli_proof_across_processes_is_the_jax_clis(runs):
+    """Rank 0's proof of the 8x3 instance == the JAX command line's."""
+    assert (runs["tmp"] / "out0" / "SGD" / "tiny8x3.proof.json").read_text() == runs["jax"]["cli"]
+
+
+def test_cli_resume_follows_rank_0(runs):
+    """--resume with an --out a rank: rank 0's says the instance verified,
+    rank 1's is empty, and both ranks skip it (else rank 1 would prove
+    alone and wait for rank 0 in its first exchange)."""
+    for r, (rc, out, err) in enumerate(runs["resumed"]):
+        assert rc == 0, f"rank {r} rc={rc}\n{out[-2000:]}\n{err[-3000:]}"
+        assert "Skipping tiny8x3 (already verified)" in out
+        assert "Proving tiny8x3" not in out
+    assert not (runs["tmp"] / "out1").exists()
+
+
 @pytest.mark.parametrize("flags,needle", [
     (["--num-hosts", "2", "--host-id", "0", "--mesh", "4"],
      "--mesh 4 in a process group of 2 ranks"),
@@ -183,10 +234,37 @@ def test_cli_group_flag_errors(tmp_path, capsys, flags, needle):
 
 
 def test_init_distributed_without_flags_or_launcher_is_a_noop(monkeypatch):
+    import torch.distributed as dist
+
     for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var, raising=False)
     assert runtime.init_distributed(device="cpu") is False
-    assert cli._group() is None
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("device,on_host,cards,backend", [
+    ("cpu", 1, 0, "gloo"),
+    ("cpu", 2, 4, "gloo"),
+    ("cuda", 1, 1, "nccl"),  # one rank a host, each with its one card (two hosts)
+    ("cuda", 2, 1, "gloo"),  # two ranks sharing one card
+    ("cuda", 4, 4, "nccl"),
+    ("cuda", 5, 4, "gloo"),
+])
+def test_backend_rule(monkeypatch, device, on_host, cards, backend):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert runtime.backend_for(device, on_host) == backend
+
+
+def test_host_ranks_counts_the_ranks_of_each_host():
+    """Rank 1 of 3 here, rank 0 on another host, rank 2 on this one: two
+    ranks share this host and rank 1 is the first of them."""
+    import torch.distributed as dist
+
+    store = dist.HashStore()
+    store.set("otti/host/0", "another-host")
+    store.set("otti/host/2", socket.gethostname())
+    assert runtime.host_ranks(store, 1, 3) == (2, 0)
+    assert runtime.host_ranks(store, 2, 3) == (2, 1)
 
 
 def _worker(rank: int, port: str, out: str) -> None:

@@ -591,12 +591,14 @@ def test_function_is_a_marked_copy(copy_path, orig_path, name):
 @pytest.mark.parametrize("avail", [1, 2, 3, 8])
 def test_mesh_size_is_a_marked_copy(avail, monkeypatch, capsys):
     """``cli._mesh_size`` is its original's text but for how it counts the
-    visible devices (the port's ``_visible_devices``, not ``jax.devices()``),
-    and resolves every request as the original does, with its stage
-    messages, whatever the number of devices visible."""
+    devices (the port's ``_device_count``: the visible ones, or the ranks of
+    a process group, not ``jax.devices()``), and resolves every request as
+    the original does, with its stage messages, whatever the number of
+    devices visible or of ranks in a group (on one visible device)."""
     import types
 
     import jax
+    import torch.distributed as dist
 
     from otti_tpu import cli as j_cli
     from otti_tpu_torch import cli as t_cli
@@ -604,21 +606,25 @@ def test_mesh_size_is_a_marked_copy(avail, monkeypatch, capsys):
     copy, marker = _function_source("otti_tpu_torch/cli.py", "_mesh_size")
     original, _ = _function_source("otti_tpu/cli.py", "_mesh_size")
     assert marker == ("# copied from otti_tpu/cli.py::_mesh_size "
-                      "(the visible devices counted by _visible_devices)")
+                      "(the devices counted by _device_count)")
     assert copy == (original
-                    .replace("(mesh, shape) -> int:", '(mesh, shape, device="cuda") -> int:')
+                    .replace("(mesh, shape) -> int:",
+                             '(mesh, shape, device="cuda", group=None) -> int:')
                     .replace("    import jax\n\n    avail = len(jax.devices())",
-                             "    avail = len(_visible_devices(device))"))
+                             "    avail = _device_count(device, group)"))
     monkeypatch.setattr(jax, "devices", lambda *a: [None] * avail)
-    monkeypatch.setattr(t_cli, "_visible_devices", lambda device: [None] * avail)
+    group = object()
+    monkeypatch.setattr(dist, "get_world_size", lambda g: avail if g is group else 1)
     capsys.readouterr()
-    for cons, nvars in ((16, 8), (4, 2), (2, 64), (1024, 1024)):
-        shape = types.SimpleNamespace(num_cons_padded=cons, num_vars_padded=nvars)
-        for mesh in (None, "auto", "1", "2", "3", "4", "6", "8", "16"):
-            got = t_cli._mesh_size(mesh, shape, "cpu")
-            said = capsys.readouterr().out
-            assert got == j_cli._mesh_size(mesh, shape), (mesh, shape)
-            assert said == capsys.readouterr().out, (mesh, shape)
+    for visible, grp in (([None] * avail, None), ([None], group)):
+        monkeypatch.setattr(t_cli, "_visible_devices", lambda device, v=visible: v)
+        for cons, nvars in ((16, 8), (4, 2), (2, 64), (1024, 1024)):
+            shape = types.SimpleNamespace(num_cons_padded=cons, num_vars_padded=nvars)
+            for mesh in (None, "auto", "1", "2", "3", "4", "6", "8", "16"):
+                got = t_cli._mesh_size(mesh, shape, "cpu", grp)
+                said = capsys.readouterr().out
+                assert got == j_cli._mesh_size(mesh, shape), (mesh, shape, grp)
+                assert said == capsys.readouterr().out, (mesh, shape, grp)
 
 
 @pytest.mark.parametrize("strobe", ["default", "python"])

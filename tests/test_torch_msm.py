@@ -141,7 +141,7 @@ def test_msm_bitserial_and_shared_bases():
 
 def test_two_level_scan_against_a_naive_bucket_sum():
     """Bucket sums of 64 sorted points (4 chunks, digits of 4 bits) against
-    the sums of each digit's points on the host, and the msm_jit callable."""
+    the sums of each digit's points on the host, and the whole MSM at that window."""
     rng = np.random.default_rng(17)
     n, w = 64, 4
     pts, _ = _case(n, 17)
@@ -152,7 +152,7 @@ def test_two_level_scan_against_a_naive_bucket_sum():
     got = P._segment_scan_bucket_sums(_dev(pts, [0] * n)[0], torch.tensor(digs), w)
     assert E.to_refs(got) == want
     sc = [int(d) for d in rng.integers(0, 1 << 62, n)]
-    assert E.to_ref(P.msm_jit(n, w)(*_dev(pts, sc))) == native.msm_host(pts, sc)
+    assert E.to_ref(P.msm(*_dev(pts, sc), w)) == native.msm_host(pts, sc)
 
 
 @pytest.mark.parametrize("n,w", JAX_CASES)
