@@ -135,6 +135,24 @@ Phases (each prints a line; any failure exits non-zero):
               launches, device launches) against one process at k = 2 and
               1; with two cards or more the same under NCCL, a card a rank,
               at W = 2 (and 4), with no host sync (OTTI_SYNC_CHECK)
+ 16. mono     the single-dispatch sharded provers (parallel/fused_prover.py,
+              the CLI's --mesh under OTTI_MESH_MONOLITHIC=1): the LPs
+              117 x 225 of seeds 1 and 2 (one class), zk (a blind seed an
+              LP) and plain, at k = 1, 2, 4 shards on cuda:0, each core
+              captured as one CUDA graph: the launches of the path (counts
+              set to 0 just before the cold zk prove at k = 2), each cold
+              prove (eager warm-up, capture and instantiation) byte-equal
+              to hybrid's and verified, a tampered proof rejected, LP 2
+              replayed through LP 1's graph == hybrid == the eager core (no
+              host sync), five warm replays and one under torch.profiler
+              (graph launches, device launches, busy share), each graph's
+              pool, beside three warm runs of hybrid / hybrid_sharded;
+              optdigits zk at k = 2; with two cards or more run_lp(mesh=
+              'auto') under it (uncaptured, meta graph false), the CLI as
+              two NCCL ranks (graph true) and this script's --mono-worker
+              as 2 (and 4) NCCL ranks, each rank's core captured and
+              replayed, == hybrid on each rank.  Phase mono_cards (not in
+              the default list) runs that part over several cards alone
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -153,6 +171,7 @@ import os
 import random
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -162,7 +181,7 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "kernel1", "kernel2", "main", "cpu_gpu", "scale", "lp_sdp", "snark",
-          "custom", "device_fs", "profile", "batch", "mesh", "dist")
+          "custom", "device_fs", "profile", "batch", "mesh", "dist", "mono")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 HOST_FS_KERNELS = ("field_mul", "sumcheck_round")  # the paths with the host transcript
@@ -2271,9 +2290,14 @@ def _profiled(fn) -> dict:
         for k in OWN_KERNELS:
             if k in e.name():
                 own[k] += e.duration_ns() / 1e6
+    # the host's launch calls (cudaLaunchKernel, cuLaunchKernel, ...): a replayed
+    # graph is one cudaGraphLaunch for all of its kernels
+    calls = collections.Counter(e.name() for e in prof.profiler.kineto_results.events()
+                                if e.device_type() != DeviceType.CUDA and "Launch" in e.name())
     return {"device_launches": len(events), "device_ms": busy_ms,
             "profiled_wall_ms": wall * 1e3, "busy_share": busy_ms / (wall * 1e3),
-            "own_kernels_ms": dict(own)}
+            "own_kernels_ms": dict(own), "launch_calls": dict(calls),
+            "graph_launches": sum(n for name, n in calls.items() if "Graph" in name)}
 
 
 def _batch_profile(rec: dict, fns: dict) -> None:
@@ -2586,7 +2610,8 @@ def _run_ranks(tag: str, argvs: list, env: dict, labels=None) -> list:
             try:
                 out, err = p.communicate(timeout=max(1.0, deadline - time.time()))
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"[{tag}] {labels[r]} ran past {DIST_TIMEOUT}s") from None
+                raise AssertionError(f"[{tag}] {labels[r]} ran past {DIST_TIMEOUT}s"
+                                     + _rank_tails(procs[r:], labels[r:])) from None
             for line in out.splitlines():
                 log(f"[{tag}:{labels[r]}] {line}")
             if p.returncode != 0 or not out.strip():
@@ -2600,23 +2625,45 @@ def _run_ranks(tag: str, argvs: list, env: dict, labels=None) -> list:
     return outs
 
 
+def _rank_tails(procs: list, labels: list) -> str:
+    """What the ranks still running wrote to stderr, each stopped by SIGABRT
+    first (their environment enables faulthandler, which then prints every
+    thread's Python stack)."""
+    text = ""
+    for p, label in zip(procs, labels):
+        if p.poll() is None:
+            p.send_signal(signal.SIGABRT)
+        try:
+            _, err = p.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            _, err = p.communicate()
+        text += f"\n--- {label} (rc {p.returncode}), stderr:\n{(err or '')[-3000:]}"
+    return text
+
+
 def _rank_env(world: int, one_card: bool) -> dict:
     """The ranks' environment: with ``one_card`` every rank sees only the
     first visible card (ranks share it: gloo); else each its own (NCCL)."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHONFAULTHANDLER="1")
     if one_card:
         env["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     return env
 
 
-def _dist_cli(rec: dict, tmp: str, lp: str, world: int, backend: str, plain_ref: str) -> None:
+def _dist_cli(rec: dict, tmp: str, lp: str, world: int, backend: str, plain_ref: str,
+              mono: bool = False) -> None:
     """python -m otti_tpu_torch.cli --lp --custom LP --mesh W as W ranks
     (transparent and zk side by side, a rendezvous each): every rank exits
     0 and verifies, rank 0 alone writes --out, its meta names the backend,
-    and its transparent proof is hybrid.prove's in one process."""
+    and its transparent proof is hybrid.prove's in one process.  With
+    ``mono`` under OTTI_MESH_MONOLITHIC=1 (parallel/fused_prover.py), whose
+    meta says graph true under NCCL (a rank's core captured) and false
+    under gloo."""
     from otti_tpu_torch.spartan import serial
 
-    tag = f"dist:cli:{backend}:W={world}"
+    tag = f"dist:cli:{backend}:W={world}" + (":mono" if mono else "")
+    graph = mono and backend == "nccl"
     argvs, outs, labels = [], {}, []
     for zk in (False, True):
         port, mode = _free_port(), "zk" if zk else "plain"
@@ -2627,7 +2674,10 @@ def _dist_cli(rec: dict, tmp: str, lp: str, world: int, backend: str, plain_ref:
                   for r in range(world)]
         labels += [f"{mode}:rank{r}" for r in range(world)]
     t0 = time.time()
-    res = _run_ranks(tag, argvs, _rank_env(world, backend == "gloo"), labels)
+    env = _rank_env(world, backend == "gloo")
+    if mono:
+        env["OTTI_MESH_MONOLITHIC"] = "1"
+    res = _run_ranks(tag, argvs, env, labels)
     for (out, _), argv in zip(res, argvs):
         if "Verification successful for gen117x225.mps" not in out:
             raise AssertionError(f"[{tag}] a rank did not verify: {' '.join(argv[3:])}")
@@ -2637,10 +2687,11 @@ def _dist_cli(rec: dict, tmp: str, lp: str, world: int, backend: str, plain_ref:
         meta = os.path.join(dirs[0], "LP", "gen117x225.mps.meta.json")
         with open(meta) as f:
             m = json.load(f)
-        if (m["mode"], m["dist_backend"], m["world_size"], m["card"], m["verified"]) != (
-                f"{mode}-mesh{world}", backend, world, "cuda:0", True):
+        if (m["mode"], m["dist_backend"], m["world_size"], m["card"], m["verified"],
+                m["graph"]) != (f"{mode}-mesh{world}", backend, world, "cuda:0", True, graph):
             raise AssertionError(f"[{tag}] {meta}: {m}")
-        log(f"[{tag}] rank 0's meta: mode {m['mode']}, backend {m['dist_backend']}, card "
+        log(f"[{tag}] rank 0's meta: mode {m['mode']}, graph {m['graph']}, backend "
+            f"{m['dist_backend']}, card "
             f"{m['card']} ({m['device']}), prove {m['timings']['prove']:.4f}s (cold), verify "
             f"{m['timings']['verify']:.4f}s")
     with open(os.path.join(outs["plain"][0], "LP", "gen117x225.mps.proof.json")) as f:
@@ -2874,6 +2925,300 @@ def phase_dist(rec: dict) -> None:
                     f"rank {r['rank']} {r['profile']['device_launches']}" for r in ranks))
 
 
+MONO_SHARDS = (1, 2, 4)  # shards on the one card in phase mono
+MONO_RUNS = 5  # warm replays timed a prover in phase mono
+MONO_EAGER_RUNS = 3  # warm runs of each eager prover timed beside them
+MONO_SEEDS = (bytes(range(32)), bytes(range(1, 33)))  # blind seeds of the two LPs
+
+
+def _mono_eager(fn):
+    """fn() with parallel/fused_prover.py's core uncaptured (its captures
+    answering no) under OTTI_SYNC_CHECK=1: the eager core, which must not
+    wait on the card before its fetch."""
+    from otti_tpu_torch.parallel import fused_prover as FP
+
+    captures = FP.captures
+    FP.captures = lambda devices, group=None: False
+    os.environ["OTTI_SYNC_CHECK"] = "1"
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    finally:
+        FP.captures = captures
+        del os.environ["OTTI_SYNC_CHECK"]
+
+
+def _mono_lps(tmp: str, card) -> list:
+    """The LP 117 x 225 of seeds 1 and 2 (write_lp_mps), lowered and on
+    ``card``: two instances of one padded class."""
+    insts = []
+    for seed in (1, 2):
+        path = os.path.join(tmp, f"gen117x225_{seed}.mps")
+        write_lp_mps(path, 117, 225, seed=seed)
+        shape, v, i = _lower_lp(path)
+        insts.append((shape.to_device(card), v, i))
+    classes = {(d.num_cons, d.num_vars) for d, _, _ in insts}
+    if len(classes) != 1:
+        raise AssertionError(f"the two LPs are not of one padded class: {classes}")
+    return insts
+
+
+def _mono_lp(rec: dict, insts: list, card) -> None:
+    """parallel/fused_prover.py on the two LPs at k = MONO_SHARDS shards on
+    ``card``, zk (a blind seed an LP) and plain: the launches of the path
+    (the counts set to 0 just before the cold zk prove at k = 2, read just
+    after); each cold prove (the eager warm-up, the capture and its
+    instantiation, the replay) byte-equal to hybrid's and verified, a
+    tampered zk proof rejected; LP 2 replayed through LP 1's graph, byte-
+    equal to hybrid's and to the eager core's (no host sync in it); then
+    MONO_RUNS warm replays, one under torch.profiler (graph launches,
+    device launches, busy share), each graph's cost and pool, beside
+    MONO_EAGER_RUNS warm runs of hybrid (k = 1) and hybrid_sharded."""
+    from otti_tpu_torch.parallel import fused_prover as FP
+    from otti_tpu_torch.parallel import hybrid_sharded as HS
+    from otti_tpu_torch.spartan import hybrid, nizk, serial, zknizk
+
+    t0 = time.time()
+    refs = {}
+    for n, (d, v, i) in enumerate(insts):
+        refs[n, True] = serial.dumps(hybrid.prove_zk(d, v, i, seed=MONO_SEEDS[n]))
+        refs[n, False] = serial.dumps(hybrid.prove(d, v, i))
+    log(f"[mono] hybrid's proofs of the two LPs (the references) in {time.time() - t0:.1f}s")
+
+    def mono(n, zk, k):
+        d, v, i = insts[n]
+        if zk:
+            return lambda: FP.prove_zk(d, v, i, k=k, seed=MONO_SEEDS[n], devices=[card] * k)
+        return lambda: FP.prove(d, v, i, k=k, devices=[card] * k)
+
+    def eager(zk, k):
+        d, v, i = insts[0]
+        if k == 1:
+            return ((lambda: hybrid.prove_zk(d, v, i, seed=MONO_SEEDS[0])) if zk
+                    else (lambda: hybrid.prove(d, v, i)))
+        if zk:
+            return lambda: HS.prove_zk(d, v, i, k=k, seed=MONO_SEEDS[0], devices=[card] * k)
+        return lambda: HS.prove(d, v, i, k=k, devices=[card] * k)
+
+    res = {}
+    for zk in (True, False):
+        mode = "zk" if zk else "plain"
+        verify = zknizk.verify if zk else nizk.verify
+        for k in (2, 1, 4):  # k = 2 first: the main path of this slice
+            tag = f"{mode}-k{k}"
+            t0 = time.time()
+            if (zk, k) == (True, 2):
+                _zero_launches()
+            start = time.perf_counter()
+            proof = mono(0, zk, k)()
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - start
+            if (zk, k) == (True, 2):
+                rec["launches_mono"] = _read_launches("mono:lp117x225:zk:k=2")
+            if serial.dumps(proof) != refs[0, zk]:
+                raise AssertionError(f"[mono] {tag}: the captured proof is not hybrid's")
+            d, _, i = insts[0]
+            if not verify(d, i, proof):
+                raise AssertionError(f"[mono] {tag}: the proof does not verify")
+            if zk and k == 2:
+                bad = dataclasses.replace(proof, bullet=dataclasses.replace(
+                    proof.bullet, z1=(proof.bullet.z1 + 1) % zknizk.L))
+                if verify(d, i, bad):
+                    raise AssertionError("[mono] a tampered bullet.z1 verified")
+            graphs = len(FP.graphs())
+            second = serial.dumps(mono(1, zk, k)())
+            if len(FP.graphs()) != graphs:
+                raise AssertionError(f"[mono] {tag}: LP 2 took a graph of its own, not LP 1's")
+            if second != refs[1, zk]:
+                raise AssertionError(f"[mono] {tag}: LP 2's replayed proof is not hybrid's")
+            if serial.dumps(_mono_eager(mono(1, zk, k))) != second:
+                raise AssertionError(f"[mono] {tag}: LP 2's replay differs from the eager core")
+            walls, _, stages = _warm_runs(mono(0, zk, k), MONO_RUNS)
+            prof = _profiled(mono(0, zk, k))
+            if prof["graph_launches"] < 1:
+                raise AssertionError(f"[mono] {tag}: the profiler saw no graph launch")
+            g = [x for x in FP.graphs() if (x["zk"], x["k"]) == (zk, k)][-1]
+            e_walls, e_per, _ = _warm_runs(eager(zk, k), MONO_EAGER_RUNS)
+            e_prof = _profiled(eager(zk, k))
+            res[tag] = {"cold_s": cold_s, "graph": g, "s": _spread(walls), "stages": stages,
+                        "profile": prof, "eager": {"s": _spread(e_walls), "launches": e_per,
+                                                   "profile": e_prof}}
+            log(f"[mono] LP 117 x 225 {tag}: cold prove {cold_s:.4f}s (eager warm-up "
+                f"{g['warmup_s']:.4f}s, capture and instantiation {g['capture_s']:.4f}s, pool "
+                f"{g['pool_mib']:.1f} MiB, launches captured {g['launches']}); byte-equal to "
+                f"hybrid's, verified{', a tampered proof rejected' if zk and k == 2 else ''}; LP 2 "
+                f"through the same graph byte-equal to hybrid's and to the eager core (no host "
+                f"sync); warm replay {_show(res[tag]['s'])} over {MONO_RUNS} runs; profiled: "
+                f"{prof['graph_launches']} graph launch(es), launch calls "
+                f"{json.dumps(prof['launch_calls'])}, {prof['device_launches']} device launches, "
+                f"{prof['device_ms']:.1f} ms device time in {prof['profiled_wall_ms']:.1f} ms "
+                f"({100 * prof['busy_share']:.1f}% busy); beside it "
+                f"{'hybrid' if k == 1 else 'hybrid_sharded'} warm {_show(res[tag]['eager']['s'])} "
+                f"over {MONO_EAGER_RUNS} runs, {e_prof['device_launches']} device launches, "
+                f"{100 * e_prof['busy_share']:.1f}% busy; {time.time() - t0:.1f}s")
+    rec["mono"] = res
+
+
+def _mono_optdigits(rec: dict, tmp: str, card) -> None:
+    """optdigits 3v8 in zero knowledge over 2 shards on ``card``, captured
+    (cold, then a replay), byte-equal to hybrid.prove_zk with one seed."""
+    from otti_tpu_torch.parallel import fused_prover as FP
+    from otti_tpu_torch.spartan import hybrid, serial, zknizk
+
+    shape, v, i = _dfs_instances(tmp, ("optdigits",))["optdigits"]
+    d = shape.to_device(card)
+    want = serial.dumps(hybrid.prove_zk(d, v, i, seed=MONO_SEEDS[0]))
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proof = FP.prove_zk(d, v, i, k=2, seed=MONO_SEEDS[0], devices=[card] * 2)
+        walls.append(time.perf_counter() - t0)
+        if serial.dumps(proof) != want:
+            raise AssertionError("[mono] optdigits: the captured zk proof is not hybrid's")
+    if not zknizk.verify(d, i, proof):
+        raise AssertionError("[mono] optdigits: the zk proof does not verify")
+    g = FP.graphs()[-1]
+    rec["mono_optdigits"] = {"cold_s": walls[0], "warm_s": walls[1], "graph": g}
+    log(f"[mono] optdigits zk k=2 ({d.num_cons} padded constraints): cold {walls[0]:.4f}s "
+        f"(capture and instantiation {g['capture_s']:.4f}s, pool {g['pool_mib']:.1f} MiB), "
+        f"replay {walls[1]:.4f}s, byte-equal to hybrid.prove_zk, verified")
+
+
+def _mono_cards(rec: dict, tmp: str) -> None:
+    """With two cards or more: cli.run_lp(mesh='auto') under
+    OTTI_MESH_MONOLITHIC=1 (shards on distinct cards: uncaptured, meta
+    graph false), then the CLI as two NCCL ranks, a card a rank, under it
+    (each rank's core captured, meta graph true)."""
+    from otti_tpu_torch import cli
+    from otti_tpu_torch.spartan import hybrid, serial
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("[mono] one card visible: the CLI over distinct cards and NCCL ranks not run")
+        return
+    lp = os.path.join(tmp, "gen117x225.mps")
+    write_lp_mps(lp, 117, 225, seed=1)
+    k = 1 << (cards.bit_length() - 1)
+    os.environ["OTTI_MESH_MONOLITHIC"] = "1"
+    try:
+        ok, _ = _captured("mono:cli", cli.run_lp, [lp], os.path.join(tmp, "mono"), zk=True,
+                          mesh="auto")
+    finally:
+        del os.environ["OTTI_MESH_MONOLITHIC"]
+    if not ok:
+        raise AssertionError("run_lp(mesh='auto') under OTTI_MESH_MONOLITHIC=1 did not verify")
+    meta = _check_meta("mono:cli", os.path.join(tmp, "mono", "LP", "gen117x225.mps.meta.json"),
+                       f"zk-mesh{k}")
+    if meta["graph"] is not False:
+        raise AssertionError("[mono:cli] shards on distinct cards were captured")
+    log(f"[mono:cli] run_lp(mesh='auto') under OTTI_MESH_MONOLITHIC=1 over {k} cards: meta mode "
+        f"zk-mesh{k}, graph false (uncaptured)")
+    shape, v, i = _lower_lp(lp)
+    plain_ref = serial.dumps(hybrid.prove(shape.to_device("cuda"), v, i))
+    _dist_cli(rec, tmp, lp, 2, "nccl", plain_ref, mono=True)
+    for world in (2, 4) if cards >= 4 else (2,):
+        tag, port, t0 = f"mono:nccl:W={world}", _free_port(), time.time()
+        outs = [os.path.join(tmp, f"mono_worker_{world}_{r}.json") for r in range(world)]
+        _run_ranks(tag, [[sys.executable, os.path.abspath(__file__), "--mono-worker",
+                          f"{r},{world},{port},{tmp},{outs[r]}"] for r in range(world)],
+                   _rank_env(world, False))
+        ranks = []
+        for path in outs:
+            with open(path) as f:
+                ranks.append(json.load(f))
+        rec.setdefault("mono_nccl", {})[f"W{world}"] = ranks
+        log(f"[{tag}] {world} ranks (NCCL, a card a rank, each rank's core captured: "
+            f"{[r['graph'] for r in ranks]}), {time.time() - t0:.1f}s: warm zk replay medians "
+            + ", ".join(f"rank {r['rank']} {r['warm']['median']:.4f}s" for r in ranks)
+            + "; graphs " + json.dumps(ranks[0]["graphs"]))
+
+
+def _mono_worker(spec: str) -> int:
+    """One rank of phase mono's NCCL run: the two LPs 117 x 225 over W
+    ranks by fused_prover, zk (a seed an LP) and plain, each rank's core
+    captured (LP 1 cold, LP 2 replayed through its graph), every proof
+    byte-equal to hybrid's on this rank's card; then MONO_RUNS warm zk
+    replays.  Writes its record (JSON) to the path in ``spec``."""
+    import torch.distributed as dist
+
+    from otti_tpu_torch import runtime
+    from otti_tpu_torch.parallel import fused_prover as FP
+    from otti_tpu_torch.spartan import hybrid, serial
+
+    rank, world, port, tmp, out = spec.split(",")
+    rank, world = int(rank), int(world)
+    runtime.init_distributed(f"127.0.0.1:{port}", world, rank, "cuda")
+    group, card = dist.group.WORLD, torch.device("cuda", torch.cuda.current_device())
+    tag = f"mono:rank{rank}"
+    here = os.path.join(tmp, f"mono_rank{rank}")
+    os.makedirs(here, exist_ok=True)
+    insts = _mono_lps(here, card)
+    rec = {"rank": rank, "backend": dist.get_backend(), "graph": FP.captures([card], group)}
+    if not rec["graph"]:
+        raise AssertionError(f"[{tag}] an NCCL rank's core is not captured")
+
+    def mono(n, zk):
+        d, v, i = insts[n]
+        if zk:
+            return lambda: FP.prove_zk(d, v, i, k=world, seed=MONO_SEEDS[n], group=group)
+        return lambda: FP.prove(d, v, i, k=world, group=group)
+
+    for zk in (True, False):
+        for n, (d, v, i) in enumerate(insts):
+            got = serial.dumps(mono(n, zk)())
+            want = serial.dumps(hybrid.prove_zk(d, v, i, seed=MONO_SEEDS[n]) if zk
+                                else hybrid.prove(d, v, i))
+            if got != want:
+                raise AssertionError(f"[{tag}] LP {n + 1} {'zk' if zk else 'plain'} over {world} "
+                                     "ranks is not hybrid's")
+    graphs = FP.graphs()
+    if len(graphs) != 2 or any(g["replays"] != 2 for g in graphs):
+        raise AssertionError(f"[{tag}] expected one graph a mode, replayed for both LPs: {graphs}")
+    walls, _, _ = _warm_runs(mono(0, True), MONO_RUNS)
+    rec.update(warm=_spread(walls), graphs=graphs)
+    log(f"[{tag}] both LPs, zk and plain, over {world} NCCL ranks byte-equal to hybrid's on "
+        f"{card}; LP 2 replayed through LP 1's graph; warm zk {_show(rec['warm'])}")
+    FP.clear_graphs()
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def phase_mono_cards(rec: dict) -> None:
+    """Phase mono's part over several cards alone (development: a
+    four-card call that runs only what needs the cards)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _mono_cards(rec, tmp)
+
+
+def phase_mono(rec: dict) -> None:
+    """The single-dispatch sharded provers (parallel/fused_prover.py, the
+    CLI's --mesh under OTTI_MESH_MONOLITHIC=1): the LP 117 x 225 zk and
+    plain at k = 1, 2, 4 shards on cuda:0, captured and replayed, against
+    hybrid and hybrid_sharded; optdigits zk at k = 2; with two cards or
+    more the CLI over distinct cards and as two NCCL ranks."""
+    from otti_tpu_torch.parallel import fused_prover as FP
+
+    card = torch.device("cuda", 0)
+    FP.clear_graphs()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        insts = _mono_lps(tmp, card)
+        log(f"[mono] two LPs 117 x 225 (seeds 1, 2; one class, {insts[0][0].num_cons} padded "
+            f"constraints) lowered in {time.time() - t0:.1f}s")
+        _mono_lp(rec, insts, card)
+        t0 = time.time()
+        _mono_optdigits(rec, tmp, card)
+        log(f"[mono] optdigits {time.time() - t0:.1f}s")
+        FP.clear_graphs()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        _mono_cards(rec, tmp)
+        log(f"[mono] over several cards {time.time() - t0:.1f}s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -2881,6 +3226,8 @@ def main(argv=None) -> int:
                                    "another commit's package in the same call)")
     ap.add_argument("--dist-worker", metavar="RANK,WORLD,PORT,LP,OUT",
                     help="run one rank of phase dist (the phase starts these itself)")
+    ap.add_argument("--mono-worker", metavar="RANK,WORLD,PORT,DIR,OUT",
+                    help="run one rank of phase mono's NCCL run (the phase starts these itself)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -2889,12 +3236,15 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.abspath(args.tree) if args.tree else REPO)
     if args.dist_worker:
         return _dist_worker(args.dist_worker)
+    if args.mono_worker:
+        return _mono_worker(args.mono_worker)
     rec: dict = {}
     fns = {"device": phase_device, "build": phase_build, "kernel1": phase_kernel1,
            "kernel2": phase_kernel2, "main": phase_main, "cpu_gpu": phase_cpu_gpu,
            "scale": phase_scale, "lp_sdp": phase_lp_sdp, "snark": phase_snark,
            "custom": phase_custom, "snark_warm": phase_snark_warm, "device_fs": phase_device_fs, "profile": phase_profile, "batch": phase_batch,
-           "mesh": phase_mesh, "dist": phase_dist}
+           "mesh": phase_mesh, "dist": phase_dist, "mono": phase_mono,
+           "mono_cards": phase_mono_cards}
     for name in phases:
         t0 = time.time()
         fns[name](rec)
@@ -2939,6 +3289,10 @@ def main(argv=None) -> int:
                             "launches_mesh": rec.get("launches_mesh", {}).get(cname),
                             # rank 0 of two on the one card, the dist phase's main path
                             "launches_dist": rec.get("launches_dist", {}).get(cname),
+                            # a cold zk prove by fused_prover at k = 2: warm-up and capture
+                            "launches_mono": rec.get("launches_mono", {}).get(cname),
+                            "launches_mono_graph": rec.get("mono", {}).get("zk-k2", {}).get(
+                                "graph", {}).get("launches", {}).get(cname),
                             **{k: v for k, v in rec[key].items()
                                if k in ("base", "quad", "fs_ms", "fs_wrapper_ms", "fs_plain_ms",
                                         "floor_ms", "sizes", "shapes")},

@@ -46,9 +46,12 @@ shards, one a card, by parallel/hybrid_sharded.py (``prove_zk``, or
 k is resolved as the JAX CLI resolves it (``_mesh_size``: at most the
 visible cards, a power of two, small enough for the instance) and meta
 ``mode`` gains ``-mesh{k}``.  As in the JAX CLI, ``--wire spartan``,
-``--snark`` and ``--batch`` take their own provers whatever the mesh, and
-``OTTI_MESH_MONOLITHIC`` (the JAX package's single-program form of the
-same proofs) selects the same provers.
+``--snark`` and ``--batch`` take their own provers whatever the mesh.
+``OTTI_MESH_MONOLITHIC=1`` selects, as in the JAX CLI, the single-dispatch
+form of the same proofs (parallel/fused_prover.py: the transcript on the
+device from the first absorb to the last squeeze, one fetch; where every
+shard of the process sits on one card and any group is NCCL, one captured
+CUDA graph replayed a prove); meta ``graph`` says whether it was captured.
 
 ``--coordinator HOST:PORT --num-hosts W --host-id R`` runs the command as
 rank R of W processes, one a card, joined by ``torch.distributed``
@@ -259,21 +262,27 @@ def _provers(shape, zk: bool, wire: str, mesh_k: int = 1, device="cuda", group=N
         return (lambda d, v, i: zknizk.prove(d, v, i, wire=wire),
                 lambda d, i, p: zknizk.verify(d, i, p, wire=wire), classic)
     if mesh_k > 1:
-        # the sharded provers, whatever OTTI_MESH_MONOLITHIC says: the JAX
-        # package's monolithic form gives the same bytes and exists only
-        # to trade compile time, which eager torch does not spend
-        from .parallel import hybrid_sharded
+        # the segmented sharded provers (parallel/hybrid_sharded.py), or with
+        # OTTI_MESH_MONOLITHIC=1 the single-dispatch ones
+        # (parallel/fused_prover.py: one device chain, a CUDA graph where
+        # fused_prover.captures says so); both give the same bytes.  The
+        # prove function's ``graph`` says whether its core is captured.
+        from .parallel import fused_prover, hybrid_sharded
 
+        mono = bool(os.environ.get("OTTI_MESH_MONOLITHIC"))
+        meshp = fused_prover if mono else hybrid_sharded
+        sharded = meshp.prove_zk if zk else meshp.prove
         if group is not None:  # a shard a rank, each on the rank's card
-            sharded = hybrid_sharded.prove_zk if zk else hybrid_sharded.prove
-            return (lambda d, v, i: sharded(d, v, i, k=mesh_k, group=group),
-                    zknizk.verify if zk else nizk.verify, classic)
-        devices = _visible_devices(device)[:mesh_k]
-        if zk:
-            return (lambda d, v, i: hybrid_sharded.prove_zk(d, v, i, k=mesh_k, devices=devices),
-                    zknizk.verify, classic)
-        return (lambda d, v, i: hybrid_sharded.prove(d, v, i, k=mesh_k, devices=devices),
-                nizk.verify, classic)
+            kw, places = {"group": group}, [device]
+        else:
+            kw = {"devices": _visible_devices(device)[:mesh_k]}
+            places = kw["devices"]
+
+        def prove_fn(d, v, i):
+            return sharded(d, v, i, k=mesh_k, **kw)
+
+        prove_fn.graph = mono and fused_prover.captures(places, group)
+        return prove_fn, zknizk.verify if zk else nizk.verify, classic
     if zk:
         prove_fn = (zknizk.prove if classic else zkfused.prove if use_fused
                     else hybrid.prove_zk)
@@ -308,7 +317,7 @@ def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None
         dev = shape.to_device(device)
         _sync(device)
     if snark:
-        mode, tag = "snark", " (snark)"
+        mode, tag, graph = "snark", " (snark)", False
         with timer.time("snark_setup"):
             comm = spark.commit(dev)
             _sync(device)
@@ -327,6 +336,7 @@ def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None
                    f"{ranks} ranks; each rank proves {name} alone")
             mesh_k = 1
         prove_fn, verify_fn, classic = _provers(shape, zk, wire, mesh_k, device, group)
+        graph = getattr(prove_fn, "graph", False)
         mode = (("zk" if zk else "plain") + (f"-mesh{mesh_k}" if mesh_k > 1 else "")
                 + (f"-wire-{wire}" if wire != "otti" else "") + ("-classic" if classic else ""))
         tag = " (zk)" if zk else ""
@@ -359,6 +369,7 @@ def prove_and_verify(shape, vars_, inputs, name: str, timer: Timer, out_dir=None
                     "name": name,
                     "mode": mode,
                     "capture": capture,
+                    "graph": graph,
                     "device": _device_name(device),
                     **dist_meta,
                     **(extra_meta or {}),
@@ -771,6 +782,11 @@ def main(argv=None) -> int:
         return _main(parser, args, prove, group)
     finally:
         if group is not None:
+            from .parallel import fused_prover
+
+            # NCCL does not tear down a communicator while a graph that
+            # captured its collectives lives
+            fused_prover.clear_graphs()
             dist.destroy_process_group()
 
 

@@ -333,37 +333,43 @@ def _group_parts(dev: r1cs.R1CSDevice, sh: _Shards) -> list:
 # The sharded steps (the JAX module's _*_kernel functions)
 # ---------------------------------------------------------------------------
 
-def _commit(sh: _Shards, w_flat, row_blinds, mu_rows: int, mu_cols: int) -> list:
-    """The witness rows' Hyrax commitments, encoded by K4 and fetched in row
-    order (transfer 1): block-sharded when there are at least k rows (shard
-    s commits rows [s, s+1) * rows/k on its device), else on the controller.
-    ``row_blinds`` [rows, 22] on the controller (zk) or None (plain)."""
+def _commit_dev(sh: _Shards, w_flat, row_blinds, mu_rows: int, mu_cols: int) -> torch.Tensor:
+    """The witness rows' Hyrax commitments, encoded by K4: [rows, 32] uint8
+    on the controller, in row order, with no host wait.  Block-sharded when
+    there are at least k rows (shard s commits rows [s, s+1) * rows/k on its
+    device; in a process group every rank's rows come through
+    ``all_gather``), else on the controller.  ``row_blinds`` [rows, 22] on
+    the controller (zk) or None (plain)."""
     rows, cols = 1 << mu_rows, 1 << mu_cols
     zk = row_blinds is not None
     k, rl = sh.k, rows // sh.k
     W = w_flat.reshape(rows, cols, N_LIMBS)
-    place = sh.groups if rows >= k else [(sh.ctrl, None)]
-    enc = np.empty((rows, 32), np.uint8)
-    for d, ss in place:
-        W_loc = W if ss is None else _take(W.view(k, rl, cols, N_LIMBS), ss).reshape(-1, cols,
-                                                                                    N_LIMBS)
+
+    def encode(W_loc, rb, d):
         tbl = pippenger.fixed_base_tables(cols, GENS_LABEL, zk, d)
         if zk:
             from ..spartan.zkfused import _commit_rows_blinded
 
-            rb = row_blinds if ss is None else _take(row_blinds.view(k, rl, N_LIMBS), ss)
-            pts = _commit_rows_blinded(_to(W_loc, d), _to(rb.reshape(-1, N_LIMBS), d), tbl)
-        else:
-            pts = commitments.commit_rows(_to(W_loc, d), [0] * W_loc.shape[0], GENS_LABEL,
-                                          tbl=tbl)
-        got = ristretto.encode(pts)
-        if ss is None:
-            enc[:] = got.cpu().numpy()
-        elif sh.group is not None:  # this rank's rows; every rank's, in row order
-            enc[:] = sh.all_gather(got).cpu().numpy()
-        else:
-            enc.reshape(k, rl, 32)[ss] = got.cpu().numpy().reshape(len(ss), rl, 32)
-    return [bytes(row.tobytes()) for row in enc]
+            return ristretto.encode(_commit_rows_blinded(_to(W_loc, d), _to(rb, d), tbl))
+        return ristretto.encode(commitments.commit_rows(_to(W_loc, d), [0] * W_loc.shape[0],
+                                                        GENS_LABEL, tbl=tbl))
+
+    if rows < k:
+        return encode(W, row_blinds, sh.ctrl)
+    pieces = []  # (shard, its rows' encodings on the controller)
+    for d, ss in sh.groups:
+        W_loc = _take(W.view(k, rl, cols, N_LIMBS), ss).reshape(-1, cols, N_LIMBS)
+        rb = None if not zk else _take(row_blinds.view(k, rl, N_LIMBS), ss).reshape(-1, N_LIMBS)
+        got = encode(W_loc, rb, d).view(len(ss), rl, 32)
+        pieces += [(s, _to(got[j], sh.ctrl)) for j, s in enumerate(ss)]
+    return sh.all_gather(torch.cat([p for _, p in sorted(pieces, key=lambda x: x[0])]))
+
+
+def _commit(sh: _Shards, w_flat, row_blinds, mu_rows: int, mu_cols: int) -> list:
+    """``_commit_dev``'s encodings fetched to the host (transfer 1), as the
+    rows' 32-byte strings."""
+    return [bytes(row.tobytes()) for row in _commit_dev(sh, w_flat, row_blinds, mu_rows,
+                                                         mu_cols).cpu().numpy()]
 
 
 def _tables1(sh: _Shards, taus: list, zs: list, parts: list, num_cons: int) -> list:
@@ -465,18 +471,23 @@ def _zk_phase(sh: _Shards, t, tables: list, blinds: tuple, tbl: dict, e, be, lab
 # The provers
 # ---------------------------------------------------------------------------
 
+def _place(sh: _Shards, z: torch.Tensor) -> tuple:
+    """z (on the controller) on every group's device, and each group's
+    cyclic slice of it, [shards, num_z/k, 22] (z[j*k + s]; a copy, which
+    phase 2 binds in place)."""
+    zt = z.view(z.shape[0] // sh.k, sh.k, N_LIMBS).transpose(0, 1)
+    return sh.put(z), [_take(zt, ss).to(d).clone(memory_format=torch.contiguous_format)
+                       for d, ss in sh.groups]
+
+
 def _setup(sh: _Shards, dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list):
     """Uploads before the chain: the witness w [nvp, 22] and z on the
     controller, z on every group's device, each group's cyclic z slice
-    [shards, num_z/k, 22] (z[j*k + s], a copy: phase 2 binds it) and its
-    partition entries."""
+    (``_place``) and its partition entries."""
     nvp = dev.num_vars
     w = _vec(list(vars_ints) + [0] * (nvp - len(vars_ints)), sh.ctrl)
     z = r1cs.assemble_z(w, _vec(inputs_ints, sh.ctrl) if inputs_ints else None, nvp)
-    zs = sh.put(z)
-    zt = z.view(dev.num_z // sh.k, sh.k, N_LIMBS).transpose(0, 1)
-    z_loc = [_take(zt, ss).to(d).clone(memory_format=torch.contiguous_format)
-             for d, ss in sh.groups]
+    zs, z_loc = _place(sh, z)
     return w, zs, z_loc, _group_parts(dev, sh)
 
 
@@ -490,6 +501,69 @@ def _start(t: Transcript, dev: r1cs.R1CSDevice, inputs_ints: list) -> Transcript
     return t
 
 
+def _plain_chain(sh: _Shards, td, tau, w, zs: list, z_loc: list, parts: list, num_cons: int,
+                 mu_rows: int, mu_cols: int) -> list:
+    """From tau ([mu_x, 22] on the controller) to the opening materials,
+    with ``td`` at the post-challenge offsets and no host wait.  Returns
+    [rounds1, vabc, rounds2, u, claim_w] on the controller."""
+    taus = sh.put(tau)
+    with hybrid._stage("matvecs", sh.ctrl):
+        t1 = _tables1(sh, taus, zs, parts, num_cons)
+    r1_l, rx_l, g1 = _local_phase(sh, td, t1, 3, b"sc1")
+    r1_t, rx_t, vabc, rabc = hybrid._phase1(td, *g1)
+    rxs = _cat(rx_l, rx_t)
+    with hybrid._stage("m_table", sh.ctrl):
+        m = _mtable(sh, rabc, mle.eq_table(rxs), parts)
+    r2_l, ry_l, g2 = _local_phase(sh, td, [list(x) for x in zip(m, z_loc)], 2, b"sc2")
+    r2_t, ry_t = hybrid._phase2(td, *g2)
+    u, claim_w = hybrid._opening(w, _cat(ry_l, ry_t), mu_rows, mu_cols)
+    return [_cat(r1_l, r1_t), vabc, _cat(r2_l, r2_t), u, claim_w]
+
+
+def _zk_chain(sh: _Shards, td, tau, w, zs: list, z_loc: list, parts: list, blinds: tuple,
+              tbls: tuple, num_cons: int, mu_rows: int, mu_cols: int) -> dict:
+    """The same in zero knowledge: ``blinds`` = (row_blinds, sc1, abc, prod,
+    eq1_a, sc2) on the controller (hybrid._zk_uploads of one instance),
+    ``tbls`` the comb tables of the sc1 rounds, the mid section and the sc2
+    rounds.  Returns hybrid._zk_device_chain's materials by name."""
+    ctrl = sh.ctrl
+    row_blinds, sc1, abc, prod, eq1_a, sc2 = blinds
+    tbl_sc1, tbl_mid, tbl_sc2 = tbls
+    taus = sh.put(tau)
+    with hybrid._stage("matvecs", ctrl):
+        t1 = _tables1(sh, taus, zs, parts, num_cons)
+    with hybrid._stage("zk_phase1", ctrl):
+        zero = F.zeros((), ctrl)
+        e1, be1, sc1_encs, sc1_z, sc1_zdb, rxs, g1 = _zk_phase(
+            sh, td, t1, sc1, tbl_sc1, zero, zero, b"sc1", 3)
+        vabc = F.canon(SCALAR, torch.stack([tb[0] for tb in g1[1:]]))
+    with hybrid._stage("zk_mid", ctrl):
+        mid_encs, mid_z, rabc, claim2, bclaim2 = hybrid._zk_mid(
+            td, tau, rxs, vabc, abc, prod, eq1_a, e1, be1, tbl_mid)
+    e_rx = mle.eq_table(rxs)
+    with hybrid._stage("m_table", ctrl):
+        m = _mtable(sh, rabc, e_rx, parts)
+    with hybrid._stage("zk_phase2", ctrl):
+        e2, be2, sc2_encs, sc2_z, sc2_zdb, rys, _ = _zk_phase(
+            sh, td, [list(x) for x in zip(m, z_loc)], sc2, tbl_sc2, claim2, bclaim2,
+            b"sc2", 2)
+    with hybrid._stage("eval_at", ctrl):
+        eabc = _eval_at(sh, e_rx, mle.eq_table(rys), parts)
+    with hybrid._stage("opening", ctrl):
+        u, buwv = hybrid._zk_opening(w, row_blinds, rys, eabc, rabc, mu_rows, mu_cols)
+    e2b = F.canon(SCALAR, torch.stack([e2, be2]))
+    return dict(state2=td.strobe.state, sc1_encs=sc1_encs, sc1_z=sc1_z, sc1_zdb=sc1_zdb,
+                mid_encs=mid_encs, mid_z=mid_z, sc2_encs=sc2_encs, sc2_z=sc2_z,
+                sc2_zdb=sc2_zdb, u=u, tail_vals=torch.cat([buwv, e2b]), rys=rys)
+
+
+def _zk_tables(ctrl) -> tuple:
+    """The comb tables of the zk rounds and of the mid section on ``ctrl``."""
+    from ..spartan.zkfused import _mid_tables, _round_tables
+
+    return _round_tables(3, ctrl), _mid_tables(ctrl), _round_tables(2, ctrl)
+
+
 @torch.inference_mode()
 def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = None,
           proto: bytes = None, devices=None, group=None):
@@ -499,8 +573,7 @@ def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = Non
     instance's device, k defaulting to W): byte-identical to hybrid.prove
     and nizk.prove, on every rank."""
     sh = _Shards(dev, k, devices, group)
-    nvp = dev.num_vars
-    mu_rows, mu_cols = _hyrax_dims(nvp)
+    mu_rows, mu_cols = _hyrax_dims(dev.num_vars)
     mu_x = (dev.num_cons - 1).bit_length()
     t = _start(Transcript(proto or PROTO), dev, inputs_ints)
     w, zs, z_loc, parts = _setup(sh, dev, vars_ints, inputs_ints)
@@ -513,20 +586,11 @@ def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = Non
 
     with metrics.timed("device_chain"):
         td = hybrid._check_handoff([t2], sh.ctrl)
-        taus = sh.put(_vec(tau, sh.ctrl))
+        tau_c = _vec(tau, sh.ctrl)
         with hybrid._no_host_sync(sh.ctrl):
-            with hybrid._stage("matvecs", sh.ctrl):
-                t1 = _tables1(sh, taus, zs, parts, dev.num_cons)
-            r1_l, rx_l, g1 = _local_phase(sh, td, t1, 3, b"sc1")
-            r1_t, rx_t, vabc, rabc = hybrid._phase1(td, *g1)
-            rxs = _cat(rx_l, rx_t)
-            with hybrid._stage("m_table", sh.ctrl):
-                m = _mtable(sh, rabc, mle.eq_table(rxs), parts)
-            r2_l, ry_l, g2 = _local_phase(sh, td, [list(x) for x in zip(m, z_loc)], 2, b"sc2")
-            r2_t, ry_t = hybrid._phase2(td, *g2)
-            u, claim_w = hybrid._opening(w, _cat(ry_l, ry_t), mu_rows, mu_cols)
-        got, _ = hybrid._fetch_packed([_cat(r1_l, r1_t), vabc, _cat(r2_l, r2_t), u, claim_w],
-                                      [])
+            mats = _plain_chain(sh, td, tau_c, w, zs, z_loc, parts, dev.num_cons, mu_rows,
+                                mu_cols)
+        got, _ = hybrid._fetch_packed(mats, [])
     metrics.add("sumcheck_rounds", mu_x)
     with metrics.timed("host_tail"):
         return assemble_plain_proof(t, comm_enc, *got, mu_x, mu_rows, mu_cols)
@@ -540,7 +604,7 @@ def prove_zk(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = 
     same blind seed.  In a process group the seed, if none is given, is
     rank 0's (``_Shards.blind_seed``)."""
     from ..spartan.pedersen_host import BlindSource
-    from ..spartan.zkfused import _mid_tables, _round_tables, assemble_zk_proof
+    from ..spartan.zkfused import assemble_zk_proof
     from ..spartan.zknizk import PROTO as ZK_PROTO
 
     sh = _Shards(dev, k, devices, group)
@@ -549,12 +613,11 @@ def prove_zk(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = 
     mu_rows, mu_cols = _hyrax_dims(dev.num_vars)
     mu_x = (dev.num_cons - 1).bit_length()
     with metrics.timed("blinds"):  # zknizk.prove's order
-        _, row_blinds, sc1, abc, prod, eq1_a, sc2 = hybrid._first(
-            hybrid._zk_uploads([rng], dev, mu_rows))
+        _, *blinds = hybrid._first(hybrid._zk_uploads([rng], dev, mu_rows))
     t = _start(Transcript(ZK_PROTO), dev, inputs_ints)
     w, zs, z_loc, parts = _setup(sh, dev, vars_ints, inputs_ints)
     with metrics.timed("commit"), hybrid._stage("commit", ctrl):
-        comm_enc = _commit(sh, w, row_blinds, mu_rows, mu_cols)
+        comm_enc = _commit(sh, w, blinds[0], mu_rows, mu_cols)
     for enc in comm_enc:
         t.append_point(b"poly_commitment", enc)
     tau = t.challenge_vector(b"challenge_tau", mu_x)
@@ -562,35 +625,10 @@ def prove_zk(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = 
     with metrics.timed("device_chain"):
         td = hybrid._check_handoff([t], ctrl)
         tau_c = _vec(tau, ctrl)
-        taus = sh.put(tau_c)
-        tbl_sc1, tbl_mid, tbl_sc2 = _round_tables(3, ctrl), _mid_tables(ctrl), _round_tables(2,
-                                                                                          ctrl)
+        tbls = _zk_tables(ctrl)
         with hybrid._no_host_sync(ctrl):
-            with hybrid._stage("matvecs", ctrl):
-                t1 = _tables1(sh, taus, zs, parts, dev.num_cons)
-            with hybrid._stage("zk_phase1", ctrl):
-                zero = F.zeros((), ctrl)
-                e1, be1, sc1_encs, sc1_z, sc1_zdb, rxs, g1 = _zk_phase(
-                    sh, td, t1, sc1, tbl_sc1, zero, zero, b"sc1", 3)
-                vabc = F.canon(SCALAR, torch.stack([tb[0] for tb in g1[1:]]))
-            with hybrid._stage("zk_mid", ctrl):
-                mid_encs, mid_z, rabc, claim2, bclaim2 = hybrid._zk_mid(
-                    td, tau_c, rxs, vabc, abc, prod, eq1_a, e1, be1, tbl_mid)
-            e_rx = mle.eq_table(rxs)
-            with hybrid._stage("m_table", ctrl):
-                m = _mtable(sh, rabc, e_rx, parts)
-            with hybrid._stage("zk_phase2", ctrl):
-                e2, be2, sc2_encs, sc2_z, sc2_zdb, rys, _ = _zk_phase(
-                    sh, td, [list(x) for x in zip(m, z_loc)], sc2, tbl_sc2, claim2, bclaim2,
-                    b"sc2", 2)
-            with hybrid._stage("eval_at", ctrl):
-                eabc = _eval_at(sh, e_rx, mle.eq_table(rys), parts)
-            with hybrid._stage("opening", ctrl):
-                u, buwv = hybrid._zk_opening(w, row_blinds, rys, eabc, rabc, mu_rows, mu_cols)
-            e2b = F.canon(SCALAR, torch.stack([e2, be2]))
-            out = dict(state2=td.strobe.state, sc1_encs=sc1_encs, sc1_z=sc1_z, sc1_zdb=sc1_zdb,
-                       mid_encs=mid_encs, mid_z=mid_z, sc2_encs=sc2_encs, sc2_z=sc2_z,
-                       sc2_zdb=sc2_zdb, u=u, tail_vals=torch.cat([buwv, e2b]), rys=rys)
+            out = _zk_chain(sh, td, tau_c, w, zs, z_loc, parts, tuple(blinds), tbls,
+                            dev.num_cons, mu_rows, mu_cols)
         with metrics.timed("fetch"):
             got = hybrid._fetch_zk(out)
     metrics.add("sumcheck_rounds", mu_x)

@@ -12,7 +12,10 @@ port each pair, 240 s at most, killed on expiry).  Each rank:
   ``hybrid.prove_zk(seed=S)`` in one process and of the JAX package's
   ``nizk.prove`` / ``zknizk.prove(seed=S)`` on the same instance, and
   ``prove_zk`` without a seed, which must give one proof on both ranks
-  (rank 0's seed), verified.
+  (rank 0's seed), verified;
+- proves the same instance by ``fused_prover.prove`` and ``prove_zk(seed=S)``
+  across the two ranks (the core uncaptured, as a gloo group runs it),
+  which must give the same bytes.
 Two more subprocesses run the command line as ranks 0 and 1 (``--mesh 2
 --transparent`` on the 8x3 SGD instance): both verify, only rank 0 writes
 ``--out``, and its proof is the JAX command line's.  A second such pair,
@@ -182,6 +185,16 @@ def test_proofs_across_processes_equal_one_process(runs, mode):
         assert rank[f"{mode}_verified"]
 
 
+@pytest.mark.parametrize("mode", ["plain", "zk"])
+def test_fused_prover_across_processes_equals_one_process(runs, mode):
+    """fused_prover over two gloo ranks (its core uncaptured: gloo stages
+    through host memory) == hybrid in one process == the JAX package's
+    prover, on each rank."""
+    for rank in runs["work"]:
+        assert rank["mono_graph"] is False
+        assert rank[f"mono_{mode}"] == rank[f"{mode}_single"] == runs["jax"][mode]
+
+
 def test_zk_blind_seed_is_rank_0s(runs):
     a, b = runs["work"]
     assert a["zk_drawn"] == b["zk_drawn"] and a["zk_drawn_verified"]
@@ -272,6 +285,7 @@ def _worker(rank: int, port: str, out: str) -> None:
     import torch.distributed as dist
 
     from otti_tpu_torch.field import ops as F
+    from otti_tpu_torch.parallel import fused_prover as FP
     from otti_tpu_torch.parallel import hybrid_sharded as HS
     from otti_tpu_torch.parallel import sharded
     from otti_tpu_torch.spartan import hybrid, nizk, serial, zknizk
@@ -296,6 +310,10 @@ def _worker(rank: int, port: str, out: str) -> None:
     res["zk_verified"] = zknizk.verify(dev, [], zk)
     drawn = HS.prove_zk(dev, zvars, [], group=group)
     res["zk_drawn"], res["zk_drawn_verified"] = serial.dumps(drawn), zknizk.verify(dev, [], drawn)
+    # the single-dispatch provers over the two ranks (gloo: uncaptured)
+    res["mono_graph"] = FP.captures([dev.device], group)
+    res["mono_plain"] = serial.dumps(FP.prove(dev, zvars, [], k=2, group=group))
+    res["mono_zk"] = serial.dumps(FP.prove_zk(dev, zvars, [], k=2, seed=SEED, group=group))
     dist.destroy_process_group()
     with open(out, "w") as f:
         json.dump(res, f)

@@ -268,15 +268,18 @@ def test_cli_mesh_on_one_visible_device_proves_on_one(tiny_config, capsys):
 
 def test_sharded_prover_imports_no_jax():
     """In a fresh interpreter (this one imported jax through conftest): a
-    sharded prove on two CPU shards, and no jax nor JAX package module."""
+    sharded prove on two CPU shards by hybrid_sharded and by fused_prover,
+    the same bytes, and no jax nor JAX package module."""
     code = (
         "import sys\n"
-        "from otti_tpu_torch.parallel import hybrid_sharded\n"
-        "from otti_tpu_torch.spartan import nizk, r1cs\n"
+        "from otti_tpu_torch.parallel import fused_prover, hybrid_sharded\n"
+        "from otti_tpu_torch.spartan import nizk, r1cs, serial\n"
         "shape, zvars = r1cs.random_satisfiable(8, 8)\n"
         "dev = shape.to_device('cpu')\n"
         "proof = hybrid_sharded.prove(dev, zvars, [], k=2, devices=['cpu', 'cpu'])\n"
         "assert nizk.verify(dev, [], proof)\n"
+        "mono = fused_prover.prove(dev, zvars, [], k=2, devices=['cpu', 'cpu'])\n"
+        "assert serial.dumps(mono) == serial.dumps(proof)\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "strays = [m for m in sys.modules if m == 'otti_tpu' or m.startswith('otti_tpu.')]\n"
         "assert not strays, strays\n"
