@@ -172,6 +172,7 @@ import random
 import re
 import shutil
 import signal
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1760,15 +1761,20 @@ def _dfs_proofs(rec: dict, insts: dict, tmp: str) -> None:
             f"(seeded), fused and hybrid plain == nizk, tampered bullet.z1 rejected, "
             f"no host sync between the two transfers (OTTI_SYNC_CHECK, zk and plain); "
             f"launches of a warm zk prove {per}")
-        if name == "optdigits":  # stage by stage, each waited for (no overlap)
-            os.environ["OTTI_SYNC_METRICS"] = "1"
-            try:
-                metrics.reset()
-                prove_zk(dev, vars_, inputs, seed=seed)
-                log(f"[device_fs:{name}] warm zk prove with OTTI_SYNC_METRICS=1: "
-                    + json.dumps({k: round(v, 4) for k, v in metrics.snapshot().items()}))
-            finally:
-                del os.environ["OTTI_SYNC_METRICS"]
+        if name == "optdigits":  # stage by stage, from CUDA events (hybrid._stage)
+            metrics.reset()
+            prove_zk(dev, vars_, inputs, seed=seed)
+            dev_s = {k: round(v, 6) for k, v in metrics.snapshot().items()
+                     if k.endswith("_dev_s")}
+            if not dev_s:
+                raise AssertionError(f"[device_fs:{name}] a zk prove left no <stage>_dev_s")
+            log(f"[device_fs:{name}] warm zk prove, device time by stage: " + json.dumps(dev_s))
+            on, off = _stage_event_cost(lambda: prove_zk(dev, vars_, inputs, seed=seed))
+            rec["stage_event_cost"] = {"on_s": on, "off_s": off}
+            log(f"[device_fs:{name}] warm zk prove with the stage events "
+                f"{statistics.median(on):.4f}s, without {statistics.median(off):.4f}s (medians "
+                f"of {len(on)}, alternated; on {[round(t, 4) for t in on]}, off "
+                f"{[round(t, 4) for t in off]})")
 
     # through the CLI under OTTI_CLASSIC=1, cold then warm (phase main drives
     # the default, the device transcript), then run_lp by default
@@ -1843,6 +1849,34 @@ def _dfs_fused_pad(rec: dict, inst: tuple) -> None:
     fewer = res["unfused"]["device_launches"] - res["fused"]["device_launches"]
     log(f"[device_fs:pad] fused pad: {fewer} fewer device launches a warm optdigits zk prove, "
         "proofs byte-equal")
+
+
+STAGE_EVENT_RUNS = 12  # warm proves timed with hybrid._stage's events, and as many without
+
+
+def _stage_event_cost(prove) -> tuple:
+    """Walls (s) of warm prove()s with the stage events and without (no
+    ``hybrid._collect`` open, so no ``_stage`` records one), in the order
+    on, off, off, on, ...: (on, off)."""
+    from otti_tpu_torch.spartan import hybrid
+
+    @contextlib.contextmanager
+    def no_collection():
+        yield []
+
+    real, walls = hybrid._collect, ([], [])
+    for i in range(2 * STAGE_EVENT_RUNS):
+        on = i % 4 in (0, 3)
+        hybrid._collect = real if on else no_collection
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prove()
+            torch.cuda.synchronize()
+            walls[not on].append(time.perf_counter() - t0)
+        finally:
+            hybrid._collect = real
+    return walls
 
 
 def phase_device_fs(rec: dict) -> None:
@@ -2931,6 +2965,28 @@ MONO_EAGER_RUNS = 3  # warm runs of each eager prover timed beside them
 MONO_SEEDS = (bytes(range(32)), bytes(range(1, 33)))  # blind seeds of the two LPs
 
 
+MONO_STAGES = ("commit", "matvecs", "zk_phase1", "zk_mid", "m_table", "zk_phase2", "eval_at",
+               "opening")  # the captured zk chain's hybrid._stage names
+
+
+def _check_stage_times(tag: str, stages: dict, zk: bool) -> None:
+    """The event counters of one replay (_warm_runs' last): the graph's
+    device time, and in zk every stage's, whose sum lies within 5 % of it;
+    logged in ms."""
+    want = ("graph_device_s",) + tuple(n + "_dev_s" for n in MONO_STAGES if zk)
+    missing = [k for k in want if k not in stages]
+    if missing:
+        raise AssertionError(f"[mono] {tag}: no event counters {missing}")
+    graph = stages["graph_device_s"]
+    summed = sum(v for k, v in stages.items() if k.endswith("_dev_s"))
+    if zk and not 0.95 * graph <= summed <= 1.05 * graph:
+        raise AssertionError(f"[mono] {tag}: the stages sum to {summed:.4f}s of the graph's "
+                             f"{graph:.4f}s")
+    log(f"[mono] {tag}: a replay's device time {1e3 * graph:.1f} ms, by stage (ms) "
+        + json.dumps({k[:-6]: round(1e3 * v, 1) for k, v in stages.items()
+                      if k.endswith("_dev_s")}))
+
+
 def _mono_eager(fn):
     """fn() with parallel/fused_prover.py's core uncaptured (its captures
     answering no) under OTTI_SYNC_CHECK=1: the eager core, which must not
@@ -3035,6 +3091,7 @@ def _mono_lp(rec: dict, insts: list, card) -> None:
             if serial.dumps(_mono_eager(mono(1, zk, k))) != second:
                 raise AssertionError(f"[mono] {tag}: LP 2's replay differs from the eager core")
             walls, _, stages = _warm_runs(mono(0, zk, k), MONO_RUNS)
+            _check_stage_times(tag, stages, zk)
             prof = _profiled(mono(0, zk, k))
             if prof["graph_launches"] < 1:
                 raise AssertionError(f"[mono] {tag}: the profiler saw no graph launch")

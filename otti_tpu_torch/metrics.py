@@ -1,10 +1,14 @@
-# copied from otti_tpu/metrics.py, without the jax profiler hook
+# copied from otti_tpu/metrics.py, without the jax profiler hook; timed takes
+# the perf_counter clock and opens a torch.profiler range while one records
 """Lightweight metrics/observability (SURVEY.md §5.1, §5.5).
 
 The reference prints unstructured stage names; here every prover run can
 accumulate structured counters (wall time per stage, constraints/s, MSM
 points, sumcheck rounds, host<->device transfers) that the CLI surfaces
-and out/*.meta.json persists.
+and out/*.meta.json persists.  While a torch profiler records, ``timed``
+also opens a ``record_function`` range of the counter's name, so that a
+span sits in the same trace, on the same clock, as the device's work; with
+no profiler that costs one flag check.
 """
 
 from __future__ import annotations
@@ -12,6 +16,9 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+
+import torch.autograd.profiler as _profiler
+from torch.profiler import record_function
 
 _local = threading.local()
 
@@ -37,8 +44,12 @@ def add(name: str, value: float = 1.0):
 
 @contextlib.contextmanager
 def timed(name: str):
-    t0 = time.time()
+    """Adds the block's wall seconds to ``<name>_s``; a profiler range
+    ``name`` around it while a profiler records."""
+    span = record_function(name) if _profiler._is_profiler_enabled else contextlib.nullcontext()
+    t0 = time.perf_counter()
     try:
-        yield
+        with span:
+            yield
     finally:
-        add(name + "_s", time.time() - t0)
+        add(name + "_s", time.perf_counter() - t0)

@@ -50,6 +50,16 @@ falls back to the uncaptured core.  A captured launch's own error check
 runs only at capture, so a replay's errors surface at the fetch, whose copy
 to the host synchronises the stream.
 
+What a prove leaves in ``metrics``: the host spans ``blinds`` (zk),
+``transcript``, ``inputs``, ``submit``, ``fetch`` (both inside
+``device_chain``) and ``host_tail``, each also a torch.profiler range while
+a profiler records; and, read from CUDA events once the fetch has
+synchronised the stream, ``graph_device_s`` (the replay, timed on its
+stream) and each ``hybrid._stage``'s ``<stage>_dev_s`` (``commit``: the rows
+absorbed and tau; then the chain's stages; ``exchange`` over ranks).  A
+captured graph records its stages' events as event-record nodes, which
+every replay records again; nothing waits on the card for them.
+
 Every absorbed byte is the single-device prover's, so the proofs are
 byte-identical to fused.prove / nizk.prove and, with the same blind seed,
 zknizk.prove (tests/test_torch_fused_prover.py).
@@ -105,6 +115,7 @@ class _Graph:
     capture_s: float  # capture and instantiation
     pool_mib: float  # device memory the graph's pool reserved
     launches: dict  # kernel launches captured into the graph, by wrapper
+    stages: list  # hybrid._stage's (name, start, end) events, recorded by every replay
     replays: int = 0
 
 
@@ -165,42 +176,58 @@ def _capture(core, inputs: dict, device: torch.device) -> _Graph:
     # thread_local: another thread's CUDA calls (NCCL's watchdog, the CLI's
     # lowering thread) may not end this thread's capture
     with torch.cuda.graph(graph, stream=_stream(device), capture_error_mode="thread_local"):
-        outputs = core(static)
+        with hybrid._collect() as stages:
+            outputs = core(static)
     torch.cuda.synchronize(device)
     return _Graph(graph=graph, inputs=static, outputs=outputs, warmup_s=warmup_s,
                   capture_s=time.perf_counter() - t0,
                   pool_mib=(torch.cuda.memory_reserved(device) - reserved) / 2**20,
-                  launches={n: c - before[n] for n, c in _build.LAUNCHES.items()})
+                  launches={n: c - before[n] for n, c in _build.LAUNCHES.items()},
+                  stages=stages)
 
 
 def _run(zk: bool, sh: hs._Shards, dev: r1cs.R1CSDevice, offsets: tuple, core, inputs: dict,
          fetch):
     """``fetch(core(inputs))``: captured and replayed where ``captures``
-    says so, else eagerly; no host sync before the fetch."""
+    says so, else eagerly; no host sync before the fetch.  Spans: ``submit``
+    (the core's launches, or the static inputs' copies and the replay's
+    launch), ``fetch``; counters: the graph's device time
+    (``graph_device_s``) and its stages' (``<stage>_dev_s``), read from CUDA
+    events once the fetch has synchronised the stream."""
     ctrl = sh.ctrl
     if not captures([d for d, _ in sh.groups], sh.group):
-        with hybrid._no_host_sync(ctrl):
-            out = core(inputs)
-        return fetch(out)
-    key = _key(zk, sh, dev, offsets, inputs)
-    g = _GRAPHS.get(key)
-    s = _stream(ctrl)
-    with torch.cuda.device(ctrl):
-        s.wait_stream(torch.cuda.current_stream(ctrl))  # the inputs' uploads
-        with torch.cuda.stream(s):
-            if g is None:
-                with metrics.timed("graph_capture"):
-                    g = _capture(core, inputs, ctrl)
-                while len(_GRAPHS) >= _CACHE_SIZE:
-                    _GRAPHS.pop(next(iter(_GRAPHS)))
-                _GRAPHS[key] = g
-            else:
-                for dst, src in zip(_leaves(g.inputs), _leaves(inputs)):
-                    dst.copy_(src)
-            g.graph.replay()
-            g.replays += 1
-            metrics.add("graph_replays")
-            return fetch(g.outputs)  # synchronises the stream: a replay's errors raise here
+        with hybrid._stage_times():
+            with metrics.timed("submit"), hybrid._no_host_sync(ctrl):
+                out = core(inputs)
+            with metrics.timed("fetch"):
+                return fetch(out)
+    with metrics.timed("submit"):
+        key = _key(zk, sh, dev, offsets, inputs)
+        g = _GRAPHS.get(key)
+        s = _stream(ctrl)
+        with torch.cuda.device(ctrl):
+            s.wait_stream(torch.cuda.current_stream(ctrl))  # the inputs' uploads
+            with torch.cuda.stream(s):
+                if g is None:
+                    with metrics.timed("graph_capture"):
+                        g = _capture(core, inputs, ctrl)
+                    while len(_GRAPHS) >= _CACHE_SIZE:
+                        _GRAPHS.pop(next(iter(_GRAPHS)))
+                    _GRAPHS[key] = g
+                else:
+                    for dst, src in zip(_leaves(g.inputs), _leaves(inputs)):
+                        dst.copy_(src)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record(s)
+                g.graph.replay()
+                end.record(s)
+    g.replays += 1
+    metrics.add("graph_replays")
+    with metrics.timed("fetch"), torch.cuda.device(ctrl), torch.cuda.stream(s):
+        out = fetch(g.outputs)  # synchronises the stream: a replay's errors raise here
+    metrics.add("graph_device_s", start.elapsed_time(end) / 1e3)
+    hybrid._add_stage_times(g.stages)
+    return out
 
 
 def graphs() -> list:
@@ -262,8 +289,9 @@ def _core(sh: hs._Shards, num_cons: int, num_vars: int, offsets: tuple, inputs: 
     """The plain prover on the device (fused_prover.py::_core): rows, tau,
     hybrid_sharded._plain_chain.  Returns (materials, [row encodings])."""
     mu_rows, mu_cols = _hyrax_dims(num_vars)
-    td, w, enc = _absorb_rows(sh, inputs, offsets, num_vars, None)
-    tau = td.challenge_vector_limbs(b"challenge_tau", (num_cons - 1).bit_length())
+    with hybrid._stage("commit", sh.ctrl):
+        td, w, enc = _absorb_rows(sh, inputs, offsets, num_vars, None)
+        tau = td.challenge_vector_limbs(b"challenge_tau", (num_cons - 1).bit_length())
     zs, z_loc = hs._place(sh, inputs["z"])
     return hs._plain_chain(sh, td, tau, w, zs, z_loc, inputs["parts"], num_cons, mu_rows,
                            mu_cols), [enc]
@@ -276,8 +304,9 @@ def _zk_core(sh: hs._Shards, num_cons: int, num_vars: int, offsets: tuple, tbls:
     encodings,))."""
     mu_rows, mu_cols = _hyrax_dims(num_vars)
     blinds = inputs["blinds"]
-    td, w, enc = _absorb_rows(sh, inputs, offsets, num_vars, blinds[0])
-    tau = td.challenge_vector_limbs(b"challenge_tau", (num_cons - 1).bit_length())
+    with hybrid._stage("commit", sh.ctrl):
+        td, w, enc = _absorb_rows(sh, inputs, offsets, num_vars, blinds[0])
+        tau = td.challenge_vector_limbs(b"challenge_tau", (num_cons - 1).bit_length())
     zs, z_loc = hs._place(sh, inputs["z"])
     return hs._zk_chain(sh, td, tau, w, zs, z_loc, inputs["parts"], blinds, tbls, num_cons,
                         mu_rows, mu_cols), (enc,)
@@ -289,11 +318,14 @@ def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = Non
     """The plain NIZK over k shards in one device chain (``k``, ``devices``
     and ``group`` as in hybrid_sharded.prove): byte-identical to fused.prove
     and nizk.prove, on every rank."""
-    sh = hs._Shards(dev, k, devices, group)
+    with metrics.timed("inputs"):
+        sh = hs._Shards(dev, k, devices, group)
     mu_rows, mu_cols = _hyrax_dims(dev.num_vars)
     mu_x = (dev.num_cons - 1).bit_length()
-    t = hs._start(Transcript(proto or PROTO), dev, inputs_ints)
-    inputs, offsets = _inputs(sh, dev, t, vars_ints, inputs_ints)
+    with metrics.timed("transcript"):
+        t = hs._start(Transcript(proto or PROTO), dev, inputs_ints)
+    with metrics.timed("inputs"):
+        inputs, offsets = _inputs(sh, dev, t, vars_ints, inputs_ints)
 
     def core(ins):
         return _core(sh, dev.num_cons, dev.num_vars, offsets, ins)
@@ -318,14 +350,17 @@ def prove_zk(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = 
     from ..spartan.zkfused import assemble_zk_proof
     from ..spartan.zknizk import PROTO as ZK_PROTO
 
-    sh = hs._Shards(dev, k, devices, group)
+    with metrics.timed("inputs"):
+        sh = hs._Shards(dev, k, devices, group)
     rng = BlindSource(seed or sh.blind_seed())
     with metrics.timed("blinds"):  # zknizk.prove's order
         _, *blinds = hybrid._first(hybrid._zk_uploads([rng], dev, _hyrax_dims(dev.num_vars)[0]))
-    t = hs._start(Transcript(ZK_PROTO), dev, inputs_ints)
-    inputs, offsets = _inputs(sh, dev, t, vars_ints, inputs_ints)
-    inputs["blinds"] = tuple(blinds)
-    tbls = hs._zk_tables(sh.ctrl)
+    with metrics.timed("transcript"):
+        t = hs._start(Transcript(ZK_PROTO), dev, inputs_ints)
+    with metrics.timed("inputs"):
+        inputs, offsets = _inputs(sh, dev, t, vars_ints, inputs_ints)
+        inputs["blinds"] = tuple(blinds)
+        tbls = hs._zk_tables(sh.ctrl)
 
     def core(ins):
         return _zk_core(sh, dev.num_cons, dev.num_vars, offsets, tbls, ins)

@@ -179,10 +179,11 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     tensor goes through host memory, copied there and back explicitly (the
     copy is the transport; the compute stays on the card).  NCCL takes the
     card's tensor as it is, on the current stream, with no host wait."""
-    wire = (x.cpu() if dist.get_backend(group) == "gloo" else x).contiguous()
-    parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, wire, group=group)
-    return _to(torch.cat(parts), x.device)
+    with hybrid._stage("exchange", x.device):
+        wire = (x.cpu() if dist.get_backend(group) == "gloo" else x).contiguous()
+        parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, wire, group=group)
+        return _to(torch.cat(parts), x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -577,14 +578,14 @@ def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = Non
     mu_x = (dev.num_cons - 1).bit_length()
     t = _start(Transcript(proto or PROTO), dev, inputs_ints)
     w, zs, z_loc, parts = _setup(sh, dev, vars_ints, inputs_ints)
-    with metrics.timed("commit"), hybrid._stage("commit", sh.ctrl):
+    with metrics.timed("commit"):  # fetches the row encodings: host time is device time
         comm_enc = _commit(sh, w, None, mu_rows, mu_cols)
     t2 = hybrid._fork(t)  # the pristine transcript replays in the host tail
     for enc in comm_enc:
         t2.append_point(b"poly_commitment", enc)
     tau = t2.challenge_vector(b"challenge_tau", mu_x)
 
-    with metrics.timed("device_chain"):
+    with metrics.timed("device_chain"), hybrid._stage_times():
         td = hybrid._check_handoff([t2], sh.ctrl)
         tau_c = _vec(tau, sh.ctrl)
         with hybrid._no_host_sync(sh.ctrl):
@@ -616,13 +617,13 @@ def prove_zk(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list, k: int = 
         _, *blinds = hybrid._first(hybrid._zk_uploads([rng], dev, mu_rows))
     t = _start(Transcript(ZK_PROTO), dev, inputs_ints)
     w, zs, z_loc, parts = _setup(sh, dev, vars_ints, inputs_ints)
-    with metrics.timed("commit"), hybrid._stage("commit", ctrl):
+    with metrics.timed("commit"):  # fetches the row encodings: host time is device time
         comm_enc = _commit(sh, w, blinds[0], mu_rows, mu_cols)
     for enc in comm_enc:
         t.append_point(b"poly_commitment", enc)
     tau = t.challenge_vector(b"challenge_tau", mu_x)
 
-    with metrics.timed("device_chain"):
+    with metrics.timed("device_chain"), hybrid._stage_times():
         td = hybrid._check_handoff([t], ctrl)
         tau_c = _vec(tau, ctrl)
         tbls = _zk_tables(ctrl)

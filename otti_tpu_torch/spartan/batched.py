@@ -145,7 +145,8 @@ def prove_many_zk(devs: list, vars_list: list, inputs_list: list, seeds: list = 
     """-> one ZKNIZKProof an instance, byte-identical to zknizk.prove (and
     zkfused.prove) with the same seed: each instance's blinds come from its
     own BlindSource in zknizk.prove's order."""
-    from .hybrid import _fetch_zk, _first, _no_host_sync, _zk_device_chain, _zk_uploads
+    from .hybrid import (_fetch_zk, _first, _no_host_sync, _stage_times, _zk_device_chain,
+                         _zk_uploads)
     from .pedersen_host import BlindSource
     from .zkfused import _mid_tables, _round_tables, assemble_zk_proof
     from .zknizk import PROTO as ZK_PROTO
@@ -164,7 +165,7 @@ def prove_many_zk(devs: list, vars_list: list, inputs_list: list, seeds: list = 
     stacked, _, forks, comm_encs, taus, ws, (mu_rows, mu_cols, mu_x) = \
         _host_setup(devs, vars_list, inputs_list, ZK_PROTO, row_blinds=row_ints)
     device = stacked.device
-    with metrics.timed("device_chain"):
+    with metrics.timed("device_chain"), _stage_times():
         td, tau, ws, zs = _device_setup(forks, taus, ws, inputs_list, stacked.num_vars)
         tbls = (_round_tables(3, device), _mid_tables(device), _round_tables(2, device))
         with _no_host_sync(device):

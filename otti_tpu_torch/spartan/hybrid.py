@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 
 import numpy as np
 import torch
@@ -73,20 +74,56 @@ def _no_host_sync(device):
         torch.cuda.set_sync_debug_mode(prev)
 
 
+_stages = threading.local()  # .pairs: the list _stage's event pairs go to, or None
+
+
+@contextlib.contextmanager
 def _stage(name: str, device):
-    """With OTTI_SYNC_METRICS=1 a stage of the chain waits for the card at
-    its end, so that its metric holds its device time (costs the overlap)."""
-    if not os.environ.get("OTTI_SYNC_METRICS"):
-        return contextlib.nullcontext()
+    """A stage of the chain on a CUDA ``device``: a timing event recorded on
+    the current stream at its start and at its end, kept as (name, start,
+    end) in the innermost ``_collect``ed list.  Under a graph capture the
+    events are external: two event-record nodes of the graph, recorded
+    again by every replay.  Nothing waits on the card; outside a
+    collection, and on the CPU, nothing is recorded."""
+    pairs = getattr(_stages, "pairs", None)
+    if pairs is None or torch.device(device).type != "cuda":
+        yield
+        return
+    stream = torch.cuda.current_stream(device)
+    external = torch.cuda.is_current_stream_capturing()
+    start, end = (torch.cuda.Event(enable_timing=True, external=external) for _ in range(2))
+    start.record(stream)
+    yield
+    end.record(stream)
+    pairs.append((name, start, end))
 
-    @contextlib.contextmanager
-    def timed():
-        with metrics.timed(name):
-            yield
-            if torch.device(device).type == "cuda":
-                torch.cuda.synchronize()
 
-    return timed()
+@contextlib.contextmanager
+def _collect():
+    """The ``_stage`` event pairs recorded inside, as a list."""
+    prev = getattr(_stages, "pairs", None)
+    _stages.pairs = []
+    try:
+        yield _stages.pairs
+    finally:
+        _stages.pairs = prev
+
+
+def _add_stage_times(pairs: list) -> None:
+    """Each stage's device time as the counter ``<name>_dev_s`` (a stage
+    met twice, as the exchange is, sums); call it once a fetch has
+    synchronised the stream the pairs were recorded on."""
+    for name, start, end in pairs:
+        metrics.add(name + "_dev_s", start.elapsed_time(end) / 1e3)
+
+
+@contextlib.contextmanager
+def _stage_times():
+    """The stages recorded inside, whose last act must be the fetch that
+    synchronises their stream, added as ``<name>_dev_s`` at its end."""
+    with _collect() as pairs:
+        yield
+    _add_stage_times(pairs)
 
 
 def _fetch_packed(int_arrs: list, u8_arrs: list):

@@ -332,7 +332,7 @@ def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list,
           seed: bytes | None = None) -> ZKNIZKProof:
     """Drop-in replacement for zknizk.prove: same seed -> byte-identical
     proof, verified by zknizk.verify; one fetch from the device."""
-    from .hybrid import _fetch_zk, _first, _no_host_sync, _zk_uploads
+    from .hybrid import _fetch_zk, _first, _no_host_sync, _stage_times, _zk_uploads
     from .pedersen_host import BlindSource
 
     device = dev.device
@@ -356,7 +356,7 @@ def prove(dev: r1cs.R1CSDevice, vars_ints: list, inputs_ints: list,
     tbls = (pippenger.fixed_base_tables(1 << mu_cols, GENS_LABEL, True, device),
             _round_tables(3, device), _mid_tables(device), _round_tables(2, device))
     td = DeviceTranscript.from_host(t, device)
-    with metrics.timed("zkfused_prove"):
+    with metrics.timed("zkfused_prove"), _stage_times():
         with _no_host_sync(device):
             enc_rows, out = _core(dev, td, w_flat, z, row_blinds, sc1, abc, prod, eq1_a, sc2,
                                   tbls, mu_rows, mu_cols)
