@@ -154,6 +154,17 @@ Phases (each prints a line; any failure exits non-zero):
               replayed, == hybrid on each rank.  Phase mono_cards (not in
               the default list) runs that part over several cards alone
 
+ 17. zk_round kernel K6 (spartan/zk_round_kernel.py), a zero-knowledge
+              sumcheck round after its evaluations in one launch, == the
+              torch round on the card (zkfused._zk_round_plain) at degree 3
+              (phase 1) and 2 (phase 2), one instance and a batch of 8,
+              semi-form claims: e_next, r, the encodings, z, zdb and the
+              sponge state; both timed at one instance (device time behind
+              the spin kernel, and the wrapper's), beside K4's encoding of
+              two points and K3's permutation of one state, whose times
+              make the round's floor (three encodings and the round's
+              permutations, counted by the host Merlin)
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.  ``--phases`` runs a comma-separated subset (development).
@@ -182,18 +193,20 @@ import numpy as np
 import torch
 
 PHASES = ("device", "build", "kernel1", "kernel2", "main", "cpu_gpu", "scale", "lp_sdp", "snark",
-          "custom", "device_fs", "profile", "batch", "mesh", "dist", "mono")
+          "custom", "device_fs", "profile", "batch", "mesh", "dist", "mono", "zk_round")
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 HOST_FS_KERNELS = ("field_mul", "sumcheck_round")  # the paths with the host transcript
 # the device-transcript NIZK paths (the CLI's defaults, batch, mesh)
 DFS_KERNELS = ("field_mul", "sumcheck_round", "keccak_f1600", "ristretto_encode")
+# their zero-knowledge form: each zk sumcheck round after its evaluations is K6
+ZK_KERNELS = DFS_KERNELS + ("zk_round",)
 # SNARK mode: SPARK's custom sumchecks run K5, a round's transcript step
 # inside its launch; its commitments are encoded on the host
 SNARK_KERNELS = ("field_mul", "sumcheck_round", "custom_round")
 # the hand-written kernels' symbol names, as a profiler shows them
 OWN_KERNELS = ("field_mul_kernel", "sumcheck_round_kernel", "keccak_kernel",
-               "ristretto_encode_kernel", "custom_round_kernel")
+               "ristretto_encode_kernel", "custom_round_kernel", "zk_round_kernel")
 
 
 def log(msg: str) -> None:
@@ -288,7 +301,8 @@ PTXAS_EARLIER = {"field_mul": "83 and 66 registers, no spills, 45,072 B shared",
                            "memory)",
                  "ristretto_encode": "126 registers, no spills",
                  "custom_round": "80 registers, no spills, 17,796 B static shared (before its "
-                                 "redesign: one kernel for both combinations)"}
+                                 "redesign: one kernel for both combinations)",
+                 "zk_round": "none (a new kernel)"}
 
 
 def phase_build(rec: dict) -> None:
@@ -803,7 +817,7 @@ def phase_lp_sdp(rec: dict) -> None:
                 _check_meta(f"lp_sdp:zk:{capture}",
                             os.path.join(zk_dir, kind, name + ".meta.json"), "zk", capture)
                 per_run[name] = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-        rec["launches_lp_sdp"] = _read_launches("lp_sdp:zk")
+        rec["launches_lp_sdp"] = _read_launches("lp_sdp:zk", ZK_KERNELS)
         rec.setdefault("launches_per_prove", {}).update(
             {f"zk+verify:{name}": v for name, v in per_run.items()})
         log(f"[lp_sdp:zk] launches of one warm prove + verify: {per_run}")
@@ -1795,7 +1809,7 @@ def _dfs_proofs(rec: dict, insts: dict, tmp: str) -> None:
             raise AssertionError(f"LP 117 x 225 ({capture}) did not verify")
         _check_meta(f"device_fs:lp:{capture}",
                     os.path.join(tmp, "lp", "LP", "gen117x225.mps.meta.json"), "zk")
-    rec["launches_device_fs"] = _read_launches("device_fs:lp")
+    rec["launches_device_fs"] = _read_launches("device_fs:lp", ZK_KERNELS)
 
 
 def _dfs_fused_pad(rec: dict, inst: tuple) -> None:
@@ -2475,7 +2489,7 @@ def _mesh_proofs(rec: dict, insts: dict) -> None:
     _zero_launches()
     prover("lp117x225", True, 2)()
     torch.cuda.synchronize()
-    rec["launches_mesh"] = _read_launches("mesh:lp117x225:zk:k=2")
+    rec["launches_mesh"] = _read_launches("mesh:lp117x225:zk:k=2", ZK_KERNELS)
     os.environ["OTTI_SYNC_CHECK"] = "1"
     try:
         prover("lp117x225", True, 2)()
@@ -3071,7 +3085,7 @@ def _mono_lp(rec: dict, insts: list, card) -> None:
             torch.cuda.synchronize()
             cold_s = time.perf_counter() - start
             if (zk, k) == (True, 2):
-                rec["launches_mono"] = _read_launches("mono:lp117x225:zk:k=2")
+                rec["launches_mono"] = _read_launches("mono:lp117x225:zk:k=2", ZK_KERNELS)
             if serial.dumps(proof) != refs[0, zk]:
                 raise AssertionError(f"[mono] {tag}: the captured proof is not hybrid's")
             d, _, i = insts[0]
@@ -3276,6 +3290,143 @@ def phase_mono(rec: dict) -> None:
         log(f"[mono] over several cards {time.time() - t0:.1f}s")
 
 
+ZR_LABELS = {3: b"sc1", 2: b"sc2"}  # the zk phases' labels by degree
+
+
+def _round_permutations(label: bytes, degree: int) -> int:
+    """Keccak-f permutations of one zk round's transcript steps from the
+    post-challenge offsets, counted on the host Merlin."""
+    from otti_tpu_torch.spartan import zk_round_kernel as ZR
+    from otti_tpu_torch.transcript import device as TD
+    from otti_tpu_torch.transcript.merlin import transcript_from_strobe_state
+
+    t = transcript_from_strobe_state(bytes(200), *TD.POST_CHALLENGE)
+    count = [0]
+    run_f = t.strobe._run_f
+
+    def counted():
+        count[0] += 1
+        run_f()
+
+    t.strobe._run_f = counted
+    ZR.transcript_steps(t, ZR.round_labels(label), degree)
+    return count[0]
+
+
+def _zk_round_case(degree: int, batch: int, seed: int, card) -> tuple:
+    """A round's inputs on the card, semi-form claims: (e, be, evs, xs,
+    state); ``batch`` 0: no leading axis."""
+    from otti_tpu_torch.field import ops as F
+    from otti_tpu_torch.field.fields import SCALAR
+
+    gen = torch.Generator().manual_seed(seed)
+    lead = (batch,) if batch else ()
+    m = SCALAR.modulus
+
+    def scalars(*shape):
+        n = int(np.prod(lead + shape))
+        vals = [int.from_bytes(torch.randint(0, 256, (32,), generator=gen).to(torch.uint8)
+                               .numpy().tobytes(), "little") % m for _ in range(n)]
+        return F.from_ints(SCALAR, vals, card).reshape(lead + shape + (22,))
+
+    def semi(x):
+        return _semi(x.reshape(-1, 22), gen).reshape(x.shape)
+
+    evs = scalars(degree)
+    e, be = semi(scalars()), semi(scalars())
+    xs = (scalars(), scalars(), scalars(degree + 1), scalars(), scalars())
+    state = torch.randint(0, 256, lead + (200,), generator=gen).to(torch.uint8).to(card)
+    return e, be, evs, xs, state
+
+
+def phase_zk_round(rec: dict) -> None:
+    """Kernel K6 against the torch round on the card, then both timed beside
+    the parts of its floor (K4 on two points, K3 on one state)."""
+    from otti_tpu_torch.curve import edwards as E
+    from otti_tpu_torch.curve import ristretto as R
+    from otti_tpu_torch.field import ops as F
+    from otti_tpu_torch.field.fields import SCALAR
+    from otti_tpu_torch.spartan import zk_round_kernel as ZR
+    from otti_tpu_torch.spartan import zkfused as ZF
+    from otti_tpu_torch.transcript import device as TD
+
+    card = torch.device("cuda", 0)
+
+    def transcript(state):
+        return TD.DeviceTranscript(_strobe=TD.DeviceStrobe(_raw=(state, *TD.POST_CHALLENGE)))
+
+    def run(fn, degree, case):
+        e, be, evs, xs, state = case
+        t = transcript(state.clone())
+        e_next, _, r, encs, z, zdb = fn(ZR_LABELS[degree], degree, ZF._round_tables(degree, card),
+                                        t, e, be, evs, xs)
+        return [F.canon(SCALAR, e_next), r, encs, z, zdb, t.strobe.state]
+
+    for degree in (3, 2):
+        for batch in (0, 8):
+            case = _zk_round_case(degree, batch, 1000 + 10 * degree + batch, card)
+            got = run(ZF._zk_round_from_evals, degree, case)
+            want = run(ZF._zk_round_plain, degree, case)
+            for name, g, w in zip(("e_next", "r", "encs", "z", "zdb", "state"), got, want):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"[zk_round] K6 != torch round in {name} at degree "
+                                         f"{degree}, B = {max(batch, 1)}")
+    log("[zk_round] K6 == the torch round at degree 3 and 2, B = 1 and 8: e_next, r, encs, z, "
+        "zdb and the sponge state")
+
+    # the floor's parts: K4 on two points, K3 on one state at the post-challenge pad
+    pts = E.tree_map(lambda a: a.contiguous(), E.base_point((2,), card))
+    k4_ms = cuda_ms(lambda: R.encode_cuda(pts), 200, queue_ahead=True)
+    st = torch.zeros((1, 200), dtype=torch.uint8, device=card)
+    k3_ms = cuda_ms(lambda: TD.keccak_f1600_cuda(st, *TD.POST_CHALLENGE[:2]), 200,
+                    queue_ahead=True)
+    out = {}
+    for degree in (3, 2):
+        label = ZR_LABELS[degree]
+        perms = _round_permutations(label, degree)
+        e, be, evs, xs, state = _zk_round_case(degree, 0, 7 + degree, card)
+        t = transcript(state.clone())
+        tbl = ZF._round_tables(degree, card)
+        vinv = ZF._vandermonde_inv_limbs(degree, card)
+        k6 = lambda: ZR.zk_round_cuda(label, degree, tbl["p"], vinv, t, e, be, evs, xs)  # noqa
+        ms = cuda_ms(k6, 100, queue_ahead=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            k6()
+        torch.cuda.synchronize()
+        wrapper_ms = (time.perf_counter() - t0) * 10
+        plain = lambda: ZF._zk_round_plain(label, degree, tbl, t, e, be, evs, xs)  # noqa: E731
+        plain_ms = cuda_ms(plain, 5, queue_ahead=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            plain()
+        torch.cuda.synchronize()
+        plain_wall_ms = (time.perf_counter() - t0) * 200
+        eb, beb, evsb, xsb, stateb = _zk_round_case(degree, 8, 17 + degree, card)
+        tb = transcript(stateb.clone())
+        batch8_ms = cuda_ms(lambda: ZR.zk_round_cuda(label, degree, tbl["p"], vinv, tb, eb, beb,
+                                                     evsb, xsb), 50, queue_ahead=True)
+        floor_ms = 3 * k4_ms + perms * k3_ms
+        # operations: the gathered entries (each t = x y and an addition of
+        # 10 BASE multiplies), five encodings, the permutations
+        nc = degree + 1
+        entries = 32 * (2 * (nc + 1) + 2 + 4)
+        n_ops = (2 * WIDE_MULS["base"] * (11 * entries + 5 * ENCODE_MULS)
+                 + perms * KECCAK_OPS)
+        bnd, by = ops_bound(n_ops, entries * 64 + (3 * nc + 8) * ROW_BYTES + 2 * 200)
+        out[degree] = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                           plain_wall_ms=plain_wall_ms, batch8_ms=batch8_ms, floor_ms=floor_ms,
+                           bound_ms=bnd, bound_by=by, permutations=perms)
+        log(f"[zk_round] degree {degree}: K6 {ms:.4f} ms (wrapper {wrapper_ms:.4f}; B = 8 "
+            f"{batch8_ms:.4f}) against the torch round {plain_ms:.4f} ms of device time "
+            f"({plain_wall_ms:.2f} ms a round, host-paced); floor {floor_ms:.4f} ms = 3 x K4 "
+            f"{k4_ms:.5f} + {perms} x K3 {k3_ms:.5f}; bound {bnd:.6f} ms ({by})")
+    rec["zk_round"] = dict(out[3], max_abs_err=0, quad=out[2], k4_ms=k4_ms, k3_ms=k3_ms)
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -3301,7 +3452,7 @@ def main(argv=None) -> int:
            "scale": phase_scale, "lp_sdp": phase_lp_sdp, "snark": phase_snark,
            "custom": phase_custom, "snark_warm": phase_snark_warm, "device_fs": phase_device_fs, "profile": phase_profile, "batch": phase_batch,
            "mesh": phase_mesh, "dist": phase_dist, "mono": phase_mono,
-           "mono_cards": phase_mono_cards}
+           "mono_cards": phase_mono_cards, "zk_round": phase_zk_round}
     for name in phases:
         t0 = time.time()
         fns[name](rec)
@@ -3324,6 +3475,8 @@ def main(argv=None) -> int:
          "otti_tpu/curve/ristretto.py:61"),
         ("custom", "custom_round", "otti_tpu_torch/csrc/custom_round.cu",
          "otti_tpu/spartan/sumcheck.py:202"),
+        ("zk_round", "zk_round", "otti_tpu_torch/csrc/zk_round.cu",
+         "otti_tpu/spartan/zkfused.py:130"),
     ):
         # K5's path is SNARK mode (phase snark); the others' the CLI's zk default
         path = rec.get("launches_snark", {}) if key == "custom" else launches
@@ -3352,7 +3505,8 @@ def main(argv=None) -> int:
                                 "graph", {}).get("launches", {}).get(cname),
                             **{k: v for k, v in rec[key].items()
                                if k in ("base", "quad", "fs_ms", "fs_wrapper_ms", "fs_plain_ms",
-                                        "floor_ms", "sizes", "shapes")},
+                                        "floor_ms", "sizes", "shapes", "batch8_ms",
+                                        "plain_wall_ms", "permutations")},
                             **({"device_challenge": rec["kernel2_device_challenge"]}
                                if key == "kernel2" and "kernel2_device_challenge" in rec
                                else {}),

@@ -38,7 +38,7 @@ NVCC_FLAGS = [
 ]
 
 LAUNCHES = {"field_mul": 0, "sumcheck_round": 0, "keccak_f1600": 0, "ristretto_encode": 0,
-            "custom_round": 0}
+            "custom_round": 0, "zk_round": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -73,6 +73,11 @@ _SIGNATURES = {
         "otti_custom_round_fs": [_P, ctypes.c_int, _LL, ctypes.c_int, _P, ctypes.c_int, _P, _P,
                                  _LL, _LL, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P],
+    },
+    "zk_round": {
+        "otti_zk_round_init": [_P],
+        "otti_zk_round": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _P],
     },
 }
 
@@ -116,12 +121,22 @@ def ristretto_consts() -> np.ndarray:
     return np.concatenate([field_consts(), np.array(words, dtype=np.uint32).view(np.int32)])
 
 
+def zk_round_consts() -> np.ndarray:
+    """ristretto_consts() followed by the 8 words of csrc/zk_round.cuh's
+    ZkConsts: 2 d mod p, the constant of the point addition."""
+    from .refimpl import numeric as ref
+
+    words = _words(2 * ref.D % ref.P, 8)
+    return np.concatenate([ristretto_consts(), np.array(words, dtype=np.uint32).view(np.int32)])
+
+
 # source file (without .cu) -> what its init function keeps for the devices:
 # each library uploads it to a device at its first launch there
 # (csrc/device.cuh; keccak.cu has no init: its constants are compiled in,
 # csrc/keccak.cuh)
 _INIT_DATA = {"field_mul": field_consts, "sumcheck_round": field_consts,
-              "ristretto_encode": ristretto_consts, "custom_round": field_consts}
+              "ristretto_encode": ristretto_consts, "custom_round": field_consts,
+              "zk_round": zk_round_consts}
 
 
 def _build(jobs: list) -> None:

@@ -1,5 +1,5 @@
-// The device arithmetic of field.cuh, ristretto.cuh, keccak.cuh and
-// strobe.cuh compiled for the host, so that a CPU test can hold the very
+// The device arithmetic of field.cuh, ristretto.cuh, keccak.cuh, strobe.cuh
+// and zk_round.cuh compiled for the host, so that a CPU test can hold the very
 // code the kernels run against Python integers, the JAX package and the host
 // library:
 //   g++ -O2 -std=c++17 -shared -fPIC -o libotti_field_host.so host_check.cpp
@@ -8,6 +8,7 @@
 #include "ristretto.cuh"
 #include "keccak.cuh"
 #include "strobe.cuh"
+#include "zk_round.cuh"
 
 extern "C" void otti_host_set_consts(const int32_t* consts) {
   set_field_consts(consts);
@@ -115,4 +116,34 @@ extern "C" void otti_host_merlin_round(uint8_t* state, int32_t* offsets, const u
 // limbs[22 i ..] = the 64 little-endian bytes b[64 i ..] mod l, canonical.
 extern "C" void otti_host_scalar_from_le64(const uint8_t* b, int32_t* limbs, long long n) {
   for (long long i = 0; i < n; ++i) fe_unpack(scalar_from_le64(b + 64 * i), limbs + OTTI_NL * i);
+}
+
+// consts: FieldConsts[2], RistrettoConsts, then ZkConsts, as
+// otti_zk_round_init takes them.
+extern "C" void otti_host_set_zk_round_consts(const int32_t* consts) {
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(consts);
+  set_field_consts(consts);
+  set_ristretto_consts(words + sizeof(FieldConsts) * 2 / 4);
+  set_zk_consts(words + (sizeof(FieldConsts) * 2 + sizeof(RistrettoConsts)) / 4);
+}
+
+// One zero-knowledge round of one instance as a block of kernel K6 runs it
+// (zk_round.cuh): in = the rows of evs, e, be, b_poly, b_next, d, r_delta,
+// r_beta; state (200 bytes, in place) at the STROBE offsets offsets[0..2];
+// prog the labels (zk_round_kernel.round_program).  Returns 1 for a degree
+// other than 2 or 3.
+extern "C" int otti_host_zk_round(const int32_t* const* in, const int32_t* vinv,
+                                  const int32_t* table, const uint8_t* prog, uint8_t* state,
+                                  const int32_t* offsets, int32_t* e_next, int32_t* r,
+                                  uint8_t* encs, int32_t* z, int32_t* zdb, int degree) {
+  const ZrIo io = {in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], vinv, table, prog,
+                   state, offsets[0], offsets[1], offsets[2], e_next, r, z, zdb, encs};
+  ZrShared sh;
+  if (degree == 2)
+    zk_round<2>(ZrBlock(), sh, io);
+  else if (degree == 3)
+    zk_round<3>(ZrBlock(), sh, io);
+  else
+    return 1;
+  return 0;
 }

@@ -16,7 +16,9 @@ transcript from the device's sponge state (``assemble_zk_proof``).
 A round's five commitments are computed in three batched MSMs grouped by
 what the transcript has fixed ({C_poly, delta} before r; {C_eval} after r;
 {C_y, beta} after w0 and w1), and encoded in three batched calls; the
-absorb order, and so the wire, is zknizk's.  The one variable-base term,
+absorb order, and so the wire, is zknizk's.  On a CUDA device all of a
+round after its evaluations is one launch of kernel K6
+(zk_round_kernel.py), the same values and bytes.  The one variable-base term,
 CA * b3 of the product proof, is ``edwards.scalar_mul``.
 
 With the same blind seed the proof is byte-identical to zknizk.prove's
@@ -41,7 +43,7 @@ from ..field.fields import N_LIMBS, SCALAR, ints_to_limbs, limbs_to_int
 from ..msm import pippenger
 from ..transcript.device import POST_CHALLENGE, DeviceTranscript
 from ..transcript.merlin import Transcript
-from . import r1cs
+from . import r1cs, zk_round_kernel
 from .nizk import GENS_LABEL, _hyrax_dims, _sb
 from .sigma import DotProductProof, EqualityProof, ProductProof
 from .sumcheck_kernels import sumcheck_round
@@ -127,8 +129,19 @@ def _zk_round_from_evals(label: bytes, degree: int, tbl: dict, t: DeviceTranscri
     running claim ``e``); the tables are the caller's.  ``xs`` = (b_poly,
     b_next, d [degree+1, 22], r_delta, r_beta).  Advances ``t``; returns
     (e_next, b_next, r, encs [4, 32], z [degree+1, 22], zdb [2, 22]).  With
-    a transcript of B states every argument and result has a leading axis B,
-    and each commitment kind is one MSM and one encoding for the batch."""
+    a transcript of B states every argument and result has a leading axis B.
+    On a CUDA device the round is one launch of kernel K6
+    (zk_round_kernel.py); on the CPU it is ``_zk_round_plain``."""
+    if t.device.type == "cuda":
+        return zk_round_kernel.zk_round_cuda(label, degree, tbl["p"],
+                                             _vandermonde_inv_limbs(degree, t.device), t, e, be,
+                                             evs, xs)
+    return _zk_round_plain(label, degree, tbl, t, e, be, evs, xs)
+
+
+def _zk_round_plain(label: bytes, degree: int, tbl: dict, t: DeviceTranscript, e, be, evs, xs):
+    """The round in torch ops, on any device: each commitment kind is one MSM
+    and one encoding for the batch."""
     b_poly, b_next, d_vec, r_delta, r_beta = xs
     dev = e.device
     zero = F.zeros(tuple(e.shape[:-1]), dev)
