@@ -133,7 +133,7 @@ def child(spec: dict) -> int:
     group, rank, world = dist.group.WORLD, dist.get_rank(), dist.get_world_size()
     device = (torch.device("cuda", torch.cuda.current_device()) if spec["device"] == "cuda"
               else torch.device("cpu"))
-    server = serve.Server(cell.config, cell.traffic, spec["seed"], device, group, tamper)
+    server = serve.Server(cell, spec["seed"], device, group, tamper)
     info = server.setup()
     record = {"setup_s": time.time() - spec["t0"]}
     if rank == 0:
@@ -163,7 +163,7 @@ def child(spec: dict) -> int:
         tr = dict(tr, busy_s=sum(e["trace"]["busy_s"] for e in every) / world,
                   launches=sum(e["trace"]["launches"] for e in every) / world)
     record["trace"] = tr
-    checks = judge.judge(cell.config, spec["seed"], insts, proofs, failed, os.cpu_count() or 1,
+    checks = judge.judge(cell, spec["seed"], insts, proofs, failed, os.cpu_count() or 1,
                          serial.dumps)
     agree = sum(len({e["digests"][j] if j < len(e["digests"]) else None for e in every}) > 1
                 for j in range(len(mine["digests"])))

@@ -42,12 +42,12 @@ def chips_missing(chips: int) -> str:
     return ""
 
 
-def metric_values(cell, kind: str, record: dict) -> dict:
-    """{name: {value, unit}} of the cell's metrics of ``kind``
+def metric_values(cell, folder: str, record: dict) -> dict:
+    """{name: {value, unit}} of the cell's metrics in ``folder``
     ("end_to_end" or "layer_metrics") whose reader finds something."""
     out = {}
-    for m in cell.end_to_end if kind == "end_to_end" else cell.per_layer:
-        v = cell.reader(kind, m["name"])(record)
+    for m in cell.end_to_end if folder == "end_to_end" else cell.per_layer:
+        v = cell.reader(folder, m["name"])(record)
         if v is not None:
             out[m["name"]] = {"value": v, "unit": m["unit"]}
     return out
@@ -95,7 +95,7 @@ def run_single(cell, seed: int, seconds: float, trace: bool, device, t0: float =
 
     workers = workers or os.cpu_count() or 1
     tamper = faults.plant(fault, seed) if fault else None
-    server = serve.Server(cell.config, cell.traffic, seed, device, tamper=tamper)
+    server = serve.Server(cell, seed, device, tamper=tamper)
     info = server.setup()
     record = {"setup_s": time.time() - t0}
     _log_setup(serve, info, record["setup_s"], t0)
@@ -109,7 +109,7 @@ def run_single(cell, seed: int, seconds: float, trace: bool, device, t0: float =
     insts, proofs, failed = server.insts, server.proofs, server.failed
     server.close()
     t1 = time.time()
-    checks = judge.judge(cell.config, seed, insts, proofs, failed, workers, serial.dumps)
+    checks = judge.judge(cell, seed, insts, proofs, failed, workers, serial.dumps)
     serve.log(f"the reference judged the run in {time.time() - t1:.3f}s")
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     return result(cell, record, trace, checks,

@@ -1,13 +1,13 @@
 """The system under test: a proving service on one card (or one rank of a
-process group) that holds a pool of lowered LP instances and proves one at
-a time, one client in a closed loop.
+process group) that holds a pool of lowered certificate instances and
+proves one at a time, one client in a closed loop.
 
-Set-up lowers the pool with the program's own lowering (io.mps.parse_mps,
-oracle.lp_oracle.solve, codegen.lp_cert.build), uploads
-each instance (R1CSShape.to_device) and proves each once, which builds the
-kernels, the comb tables and, on the captured route, the graph of the
-pool's shape.  A request is one call of the traffic's route: it starts with
-a lowered instance on the card and ends with the proof on the host.  The
+Set-up lowers the pool with the program's own lowering, through the
+configuration's kind (kinds/), uploads each instance
+(R1CSShape.to_device) and proves each once, which builds the kernels, the
+comb tables and, on the captured route, the graph of the pool's shape.  A
+request is one call of the traffic's route (routes/): it starts with a
+lowered instance on the card and ends with the proof on the host.  The
 pool is cycled in an order drawn from the seed, and request j's blinds come
 from the seed and j.
 """
@@ -17,7 +17,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import hashlib
-import os
 import shutil
 import sys
 import tempfile
@@ -26,28 +25,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from . import lpgen, routes
+from . import routes
 from . import trace as trace_mod
 
 
 def log(msg: str) -> None:
     print(f"[proofbench] {msg}", file=sys.stderr, flush=True)
-
-
-def lower(config: dict, seed: int, index: int, tmpdir: str) -> tuple:
-    """Instance ``index`` of the run: the LP made from the seed, written as
-    MPS and lowered by the program.  Returns (R1CSShape, vars, inputs)."""
-    from otti_tpu_torch.codegen import lp_cert
-    from otti_tpu_torch.io import mps
-    from otti_tpu_torch.oracle import lp_oracle
-
-    A, b, c = lpgen.make_lp(config["rows"], config["cols"], config["nnz"], seed, index)
-    path = os.path.join(tmpdir, f"{config['name']}-{index}.mps")
-    lpgen.write_mps(path, f"{config['name']}-{index}", A, b, c)
-    prob = mps.parse_mps(path)
-    x, y, _ = lp_oracle.solve(prob)
-    st = config["statement"]
-    return lp_cert.build(prob, x, y, delta=st["delta"], cap_bits=st["cap_bits"])
 
 
 def blind_seed(seed: int, j: int) -> bytes:
@@ -77,17 +60,17 @@ class Instance:
 
 
 class Server:
-    """The pool on ``device`` (a card, or the CPU in tests), proved through
-    the traffic's route; ``group`` is this rank's process group or None.
-    ``tamper`` (control runs only) is applied to each witness after
-    lowering."""
+    """The pool of ``cell`` (cell.Cell) on ``device`` (a card, or the CPU in
+    tests), proved through the traffic's route; ``group`` is this rank's
+    process group or None.  ``tamper`` (control runs only) is applied to
+    each witness after lowering."""
 
-    def __init__(self, config: dict, traffic: dict, seed: int, device, group=None,
-                 tamper=None):
-        self.config, self.traffic, self.seed = config, traffic, seed
+    def __init__(self, cell, seed: int, device, group=None, tamper=None):
+        self.cell, self.config, self.seed = cell, cell.config, seed
         self.device, self.group, self.tamper = device, group, tamper
         self.insts: list = []
-        self.order = np.random.default_rng([seed % 2**64, 1 << 20]).permutation(config["pool"])
+        self.order = np.random.default_rng([seed % 2**64, 1 << 20]).permutation(
+            self.config["pool"])
         self.j = 0  # requests made so far
         self.proofs: list = []  # (instance index, proof) of every request
         self.failed = 0
@@ -109,7 +92,8 @@ class Server:
         try:
             with ThreadPoolExecutor(1) as ex:
                 ready = ex.submit(_ready, self.device)
-                lowered = [lower(self.config, self.seed, i, tmp) for i in range(pool)]
+                lowered = [self.cell.kind.program(self.config, self.seed, i, tmp)
+                           for i in range(pool)]
                 ready.result()
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -121,8 +105,7 @@ class Server:
         t1 = time.perf_counter()
         for inst in self.insts:
             inst.dev = inst.shape.to_device(self.device)
-            inst.prove = routes.prover(self.traffic["route"], self.traffic, inst.shape,
-                                       self.device, self.group)
+            inst.prove = routes.prover(self.cell, inst.shape, self.device, self.group)
         self._sync()
         t_upload = time.perf_counter() - t1
         t2 = time.perf_counter()

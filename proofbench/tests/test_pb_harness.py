@@ -1,8 +1,11 @@
-"""The harness: cells found by name in files added alone, the result line's
-keys, the JAX check, and the per-layer arithmetic on a synthetic trace."""
+"""The harness: cells, kinds and routes found by name in files added alone,
+the refusals of cell.load, the result line's keys, the JAX check, and the
+per-layer arithmetic on a synthetic trace."""
 
+import filecmp
 import json
 import os
+import re
 import sys
 import types
 
@@ -10,6 +13,20 @@ import pytest
 
 from proofbench import cell as cell_mod
 from proofbench import run, trace
+
+from .conftest import REPO, add_toy_kind
+
+
+def _unchanged(root: str) -> list:
+    """The benchmark's files (tests aside) that differ under ``root``."""
+    out = []
+    for d, dirs, files in os.walk(os.path.join(REPO, "proofbench")):
+        dirs[:] = [x for x in dirs if x not in ("tests", "__pycache__")]
+        for f in files:
+            rel = os.path.relpath(os.path.join(d, f), REPO)
+            if not filecmp.cmp(os.path.join(REPO, rel), os.path.join(root, rel), shallow=False):
+                out.append(rel)
+    return out
 
 
 def test_new_config_mix_and_metric_are_files_only(toy_root):
@@ -34,6 +51,43 @@ def test_new_config_mix_and_metric_are_files_only(toy_root):
         "proofs_per_s": {"value": 1.5, "unit": "proofs/s"}, "setup_s": {"value": 1.5, "unit": "s"}}
     other = cell_mod.load("lp-share1b.mono-zk", toy_root)
     assert "toy.requests" not in [m["name"] for m in other.per_layer]
+    assert other.kind.__name__ == "proofbench.kinds.lp" and other.route.VERIFIER == "verify"
+    # a kind, a route and its verifier: files and BENCHMARK.json entries only
+    toy = cell_mod.load(add_toy_kind(toy_root), toy_root)
+    assert toy.kind.__file__ == os.path.join(toy_root, "proofbench", "kinds", "toy_chain.py")
+    assert toy.route.__file__ == os.path.join(toy_root, "proofbench", "routes", "toy_hybrid.py")
+    assert toy.config["length"] == 64 and "k" not in toy.traffic
+    assert cell_mod.load_file(toy_root, "reference", toy.route.VERIFIER).verify
+    assert _unchanged(toy_root) == []
+
+
+def _edit(root: str, rel: str, fn) -> None:
+    path = os.path.join(root, rel)
+    with open(path) as f:
+        d = json.load(f)
+    fn(d)
+    with open(path, "w") as f:
+        json.dump(d, f)
+
+
+@pytest.mark.parametrize("rel, fn, why", [
+    ("proofbench/configs/toy.json", lambda d: d.pop("kind"), "names no kind"),
+    ("proofbench/configs/toy.json", lambda d: d.update(kind="sdp"), "no file"),
+    ("proofbench/configs/toy.json", lambda d: d.pop("nnz"), "lacks ['nnz']"),
+    ("proofbench/configs/toy.json", lambda d: d.pop("pool"), "lacks ['pool']"),
+    ("proofbench/traffic/toy-mono-zk.json", lambda d: d.update(batch=8), "has the keys"),
+    ("proofbench/traffic/toy-mono-zk.json", lambda d: d.pop("k"), "has the keys"),
+    ("proofbench/traffic/toy-mono-zk.json", lambda d: d.update(route="snark"), "no file"),
+    ("proofbench/traffic/toy-mono-zk.json", lambda d: d.pop("route"), "names no route"),
+])
+def test_config_and_traffic_refused(toy_root, rel, fn, why):
+    """A configuration without a kind, or a kind without a file, or without
+    a key its kind or the harness reads; a traffic key that is neither
+    common nor the route's, a route's key missing, a route without a file."""
+    cell_mod.load("toy.toy-mono-zk", toy_root)
+    _edit(toy_root, rel, fn)
+    with pytest.raises(ValueError, match=re.escape(why)):
+        cell_mod.load("toy.toy-mono-zk", toy_root)
 
 
 def test_unknown_workload_refused(toy_root):
@@ -98,7 +152,7 @@ def test_layer_arithmetic_on_a_synthetic_trace(toy_root):
     assert tr["device_ops"][0] == ["k2", pytest.approx(0.06)]
 
 
-def test_counter_metrics_and_prefix_by_subtraction(toy_root):
+def test_counter_metrics_blinds_and_tail(toy_root):
     c = cell_mod.load("lp-share1b.mono-zk", toy_root)
     reqs = [{"wall_s": 0.3, "ok": True, "counters": {"blinds_s": 0.01, "device_chain_s": 0.15,
                                                      "host_tail_s": 0.06}},
@@ -107,8 +161,8 @@ def test_counter_metrics_and_prefix_by_subtraction(toy_root):
     rec = {"requests": reqs, "trace": None}
     read = lambda m: c.reader("layer_metrics", m)(rec)  # noqa: E731
     assert read("prover.blinds_ms") == pytest.approx(10)
-    assert read("graph.replay_ms") == pytest.approx(140)
     assert read("prover.tail_ms") == pytest.approx(50)
-    assert read("prover.prefix_ms") == pytest.approx(50)
     reqs[1]["counters"].pop("host_tail_s")
-    assert read("prover.prefix_ms") is None and read("prover.tail_ms") is None
+    assert read("prover.tail_ms") is None
+    names = [m["name"] for m in c.per_layer]
+    assert "prover.prefix_ms" not in names and "graph.replay_ms" not in names

@@ -19,7 +19,7 @@ READERS = {
     "prover.tail_sigma_ms": ({"host_sigma_s": (0.050, 0.070)}, 60.0),
     "prover.tail_serialize_ms": ({"host_serialize_s": (0.002, 0.002)}, 2.0),
     "graph.device_ms": ({"graph_device_s": (0.140, 0.160)}, 150.0),
-    "device.graph_busy_pct": ({"graph_device_s": (0.140, 0.160)}, 50.0),  # of a 0.6 s window
+    "device.graph_span_pct": ({"graph_device_s": (0.140, 0.160)}, 50.0),  # of a 0.6 s window
     "graph.commit_ms": ({"commit_dev_s": (0.010, 0.012)}, 11.0),
     "graph.phase1_ms": ({"matvecs_dev_s": (0.001, 0.003), "zk_phase1_dev_s": (0.030, 0.040)},
                         37.0),
@@ -64,6 +64,7 @@ def test_program_spans_change_only_the_idle_gaps_labels():
                (70 * ms, 100 * ms, "host_tail"), (71 * ms, 99 * ms, "host_sigma")]
     ops = [(21 * ms, 40 * ms, "k1"), (40 * ms + 5000, 69 * ms, "k2"),
            (69 * ms, 70 * ms, "Memcpy DtoH"), (150 * ms, 160 * ms, "after the window")]
+    assert {name for _, _, name in bench + program} <= set(trace.SPANS)  # events() keeps them
     plain, spanned = trace.summarize(ops, bench), trace.summarize(ops, bench + program)
     for key in ("requests", "window_s", "busy_s", "launches", "device_ops"):
         assert spanned[key] == plain[key], key

@@ -1,6 +1,6 @@
 """The plain reference: its lowering is the program's R1CS entry for entry,
-its verifier accepts the port's CPU proof and rejects altered ones, and it
-imports nothing of the program."""
+its verifier accepts the port's CPU proof and rejects altered ones, the LP
+kind's R1CS digests are pinned, and it imports nothing of the program."""
 
 import json
 import subprocess
@@ -9,6 +9,7 @@ import sys
 import pytest
 import torch
 
+from proofbench import cell as cell_mod
 from proofbench import lpgen
 from proofbench.reference import lowering, verify
 
@@ -98,9 +99,31 @@ def test_reference_rejects_another_instances_proof(toy_proof):
     assert not verify.verify(toy_proof[0], [], "not json")
 
 
+# reference/lowering.py's SHA3-256 digests of pool instances 0 and 1, taken
+# before the LP lowering moved into kinds/lp.py
+DIGESTS = {
+    ("lp-share1b", 0, 0): "0feba2b773528dae59eff3499655be72317f13bd00d12467ff1f5631e9e14747",
+    ("lp-share1b", 0, 1): "a366eb337e0c19b556a8c913c5da596db43621a8ce96178110429c8bf8f23fe5",
+    ("lp-share1b", 7, 0): "aff474f93d415f50a765db5f29319a3f84473fc6df7cfa8134d6119c74fb5de4",
+    ("lp-share1b", 7, 1): "d63c29d168f47ca91459747eeaa8752aea7fa30fcb592294833d0f39a5627a6c",
+    ("lp-25fv47", 0, 0): "2678d838fe7316d3817df1f6400965a2ceec81fbcee56d98bfcb629b479251e0",
+    ("lp-25fv47", 0, 1): "b935dc7113cc4377fe3e23fd11b151f3fb6c5a494fe8571844fd5cdbe096f035",
+    ("lp-25fv47", 7, 0): "05f518d7282e0bdb1cf5effed3e3c29295ed33470036538905ab61d20335db33",
+    ("lp-25fv47", 7, 1): "1afa22f02ab8ecffaf245b14bfda15ac84d58e1d364952d54b668a6b5d6fd0a7",
+}
+
+
+@pytest.mark.parametrize("config, seed, index", sorted(DIGESTS))
+def test_lp_kind_reference_digests_are_pinned(config, seed, index):
+    c = cell_mod.load(f"{config}.mono-zk")
+    assert c.kind.reference(c.config, seed, index).digest().hex() == DIGESTS[config, seed, index]
+
+
 def test_reference_imports_nothing_of_the_program():
     code = ("import sys; import proofbench.judge, proofbench.reference.verify, "
-            "proofbench.reference.lowering; "
+            "proofbench.reference.lowering; import proofbench.cell as c; "
+            "cells = [c.load(w) for w in ('lp-share1b.mono-zk', 'lp-25fv47.ranks4-zk')]; "
+            "[c.load_file(x.root, 'reference', x.route.VERIFIER) for x in cells]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('otti_tpu', 'otti_tpu_torch', 'jax', 'jaxlib', 'torch')); "
             "assert not bad, bad")

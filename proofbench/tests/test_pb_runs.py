@@ -2,7 +2,8 @@
 skipped): a sound run comes out correct; with the timed path broken
 underneath (the control's wrong witness, an answer altered where it is
 produced, the exchange between ranks left out) it comes out not correct;
-a rank that fails ends the run.  Each takes tens of seconds."""
+a rank that fails ends the run; a kind and a route added as files alone
+run, and their control fails.  Each takes tens of seconds."""
 
 import json
 import os
@@ -16,7 +17,7 @@ import torch
 from proofbench import cell as cell_mod
 from proofbench import ranks, run
 
-from .conftest import REPO
+from .conftest import REPO, add_toy_kind
 
 CPU = torch.device("cpu")
 
@@ -31,8 +32,23 @@ def test_sound_run_is_correct(toy_root):
     assert res["correct"] and res["attempted"] >= 1 and res["failed"] == 0
     assert list(res)[-1] == "checks"
     assert {k: c["value"] for k, c in res["checks"].items()} == dict.fromkeys(res["checks"], 0)
-    assert {"prover.blinds_ms", "graph.replay_ms", "prover.tail_ms"} <= set(res["metrics"])
+    assert {"prover.blinds_ms", "graph.fetch_ms", "prover.tail_ms"} <= set(res["metrics"])
     assert res["breakdown"]["idle_gaps"]
+
+
+@pytest.mark.parametrize("fault", [None, "witness"])
+def test_a_kind_and_route_added_as_files_run(toy_root, fault):
+    """The toy chain kind proved by the toy eager route: correct, and not
+    correct with the control's wrong witness."""
+    c = cell_mod.load(add_toy_kind(toy_root), toy_root)
+    res = run.run_single(c, 2**31 + 5, 0.5, False, CPU, t0=time.time(), workers=1, fault=fault)
+    assert res["attempted"] >= 1 and res["checks"]["instances_differing"]["value"] == 0
+    if fault is None:
+        assert res["correct"]
+    else:
+        assert not res["correct"]
+        assert res["checks"]["rows_unsatisfied"]["value"] >= 1
+        assert res["checks"]["proofs_rejected"]["value"] >= 1
 
 
 def test_cli_route_is_correct(toy_root):

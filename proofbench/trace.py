@@ -4,16 +4,21 @@ fall in, and the operations that took most time.
 
 Device operations are the profiler's kernel, memcpy and memset records
 (NCCL's kernels among them, waiting included); the benchmark's own
-``record_function`` spans (``SPANS``) say what the host was doing.  The
-traced window runs from the first ``request`` span's start to the last
-one's end.
+``record_function`` spans and the program's (``metrics.timed`` opens one
+while a profiler records), the names in ``SPANS``, say what the host was
+doing: an idle gap is filed under the innermost span that holds its
+middle.  The traced window runs from the first ``request`` span's start to
+the last one's end.
 """
 
 from __future__ import annotations
 
 import collections
 
-SPANS = ("request", "pool_step", "prove_zk")
+SPANS = ("request", "pool_step", "prove_zk",  # the benchmark's (serve.Server.request)
+         # the program's: parallel/fused_prover.py and spartan/zkfused.py
+         "blinds", "transcript", "inputs", "device_chain", "submit", "fetch", "host_tail",
+         "host_decode", "host_sigma", "host_serialize")
 NODE_GAP_NS = 20_000  # gaps shorter than this lie between a graph's nodes
 _DEVICE_KINDS = {"kernel", "gpu_memcpy", "gpu_memset"}
 
