@@ -504,6 +504,33 @@ def lower_sgd(dataset: str, params: dict, prob_check: bool = False, timer=None):
     return shape, vars_, inputs, data_source, X.shape
 
 
+def lower_sdp(path: str, epsilon: float | None = None) -> tuple:
+    """Host stages of one SDPA sparse (``.dat-s``) file: parse -> SDP oracle
+    -> Cholesky witnesses of X and S -> lower.  Each stage is also a
+    ``metrics.timed`` span: ``sdp_parse``, ``sdp_oracle``, ``sdp_cholesky``,
+    ``sdp_lower``.  Returns (shape, vars, inputs, timer); the timer's
+    ``lower`` holds the witnesses and the lowering."""
+    from . import metrics
+    from .io import sdpa
+    from .oracle import sdp_oracle
+
+    from .codegen import sdp_cert
+
+    timer = Timer()
+    with timer.time("parse"), metrics.timed("sdp_parse"):
+        prob = sdpa.parse_dats(path)
+    with timer.time("oracle"), metrics.timed("sdp_oracle"):
+        X, y, S = sdp_oracle.solve(prob)
+    with timer.time("lower"):
+        with metrics.timed("sdp_cholesky"):
+            Lx = sdp_oracle.cholesky_witness(X)
+            Ls = sdp_oracle.cholesky_witness(S)
+        with metrics.timed("sdp_lower"):
+            kw = {} if epsilon is None else {"epsilon": epsilon}
+            shape, vars_, inputs = sdp_cert.build(prob, X, y, Lx, Ls, **kw)
+    return shape, vars_, inputs, timer
+
+
 def run_lp(files, home_out, prove=True, zk=True, resume=False, snark=False, delta=None,
            emit_zkif=False, mesh=None, batch=False, wire="otti", device="cuda",
            group=None) -> bool:
@@ -570,28 +597,9 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
     (``.dat-s``) file: parse -> SDP oracle -> Cholesky witnesses -> lower ->
     prove; artifacts go to ``<home_out>/SDP``.  A file of another kind is
     reported and left out."""
-    from .io import sdpa
-    from .oracle import sdp_oracle
-
-    from .codegen import sdp_cert
-
     ok_all = True
     out_dir = os.path.join(home_out, "SDP")
     lowered = []  # with batch: proved together once all are lowered
-
-    def lower_one(path):
-        timer = Timer()
-        with timer.time("parse"):
-            prob = sdpa.parse_dats(path)
-        with timer.time("oracle"):
-            X, y, S = sdp_oracle.solve(prob)
-        with timer.time("lower"):
-            Lx = sdp_oracle.cholesky_witness(X)
-            Ls = sdp_oracle.cholesky_witness(S)
-            kw = {} if epsilon is None else {"epsilon": epsilon}
-            shape, vars_, inputs = sdp_cert.build(prob, X, y, Lx, Ls, **kw)
-        return shape, vars_, inputs, timer
-
     todo = []
     for path in files:
         if not path.endswith(".dat-s"):
@@ -604,7 +612,7 @@ def run_sdp(files, home_out, prove=True, zk=True, resume=False, snark=False, eps
             if s:
                 _stage(f"Skipping {os.path.basename(p)} (already verified)")
         todo = [p for p, s in zip(todo, skip) if not s]
-    for path, fut in _lower_ahead(todo, lower_one):
+    for path, fut in _lower_ahead(todo, lambda p: lower_sdp(p, epsilon)):
         name = os.path.basename(path)
         _stage(f"Making certificate for {name}")
         try:
